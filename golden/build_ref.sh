@@ -7,7 +7,7 @@
 #    after scope exit (PathTracing.hpp:10-12) — AddressSanitizer-confirmed
 #    stack-use-after-scope, segfaults under g++. We flip MULTITHREAD to 0,
 #    which also selects the single-thread pixel-center math (the variant
-#    without the double-c_off_v bug) that the TPU renderer implements.
+#    without the double-c_off_v bug) that this renderer implements.
 #  - main.cpp loads "veach_slight.obj" but the asset is "veach_sLight.obj"
 #    (main.cpp:49) — fine on case-insensitive Windows, broken on Linux; the
 #    staged model tree gets a lowercase copy.

@@ -125,7 +125,7 @@ def mesh_bdpt_body(o, nu=96, nv=96):
     floor, all INLINE v/vn/f geometry — the mesh-scale end-to-end oracle
     (VERDICT r3 missing #2): the reference parses it through readObject
     (PPMGenerator.hpp:328-482) into its BVH + BDPT; this framework parses
-    the same file into the cluster-culling intersector + wavefront BDPT.
+    the same file into the BVH intersector + wavefront BDPT.
     Inline geometry rather than OBJ because the reference's config
     grammar has no obj keyword (OBJ loads are hard-coded in the mains);
     OBJ-loader parity is pinned separately in tests/test_native.py."""

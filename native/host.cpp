@@ -3,9 +3,9 @@
 // The reference renderer's host layer is C++ (OBJ loading via the vendored
 // objl loader OBJ_Loader.h:430-717, BVH build BVH.hpp:47-123, ASCII PPM
 // read/write PPMGenerator.hpp:812-845/1027-1084). This library provides the
-// TPU framework's native equivalents — scalar, branchy host work that
+// renderer's native equivalents — scalar, branchy host work that
 // Python is slow at — exposed through a C ABI consumed via ctypes
-// (tuturenderer_tpu/native.py). Device compute stays in JAX/XLA/Pallas.
+// (tuturenderer_tpu/native.py). Device compute stays in JAX.
 //
 // Components:
 //   obj_load        : v/vt/vn/f parser with fan triangulation and generated

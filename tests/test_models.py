@@ -58,16 +58,16 @@ def test_scene_presets_render():
     assert np.isfinite(img2).all() and img2.max() > 0
 
 
-def test_large_preset_builds_clusters():
+def test_large_preset_builds_bvh():
+    """Above BVH_THRESHOLD the preset carries a BVH whose leaves partition
+    the triangles: every triangle in exactly one leaf range."""
+    from tuturenderer_tpu.ops.bvh import BVH_THRESHOLD
     scene, _ = sphere_showcase(width=8, height=8, nu=64, nv=64)  # 8k tris
-    assert scene.clusters is not None
-    assert scene.bvh is not None
-    c = scene.clusters
-    assert c.tri_idx.max() == scene.n_tris - 1
-    # every triangle appears exactly once across clusters
-    idx = np.asarray(c.tri_idx).ravel()
-    idx = idx[idx >= 0]
-    assert len(idx) == scene.n_tris and len(np.unique(idx)) == scene.n_tris
+    assert scene.n_tris >= BVH_THRESHOLD and scene.bvh is not None
+    bvh = scene.bvh
+    assert sorted(np.asarray(bvh.prim).tolist()) == list(range(scene.n_tris))
+    leaves = np.asarray(bvh.left) < 0
+    assert np.asarray(bvh.count)[leaves].sum() == scene.n_tris
 
 
 def test_profiler_and_counters():

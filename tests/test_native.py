@@ -7,8 +7,12 @@ import pytest
 
 from tuturenderer_tpu import native
 
-pytestmark = pytest.mark.skipif(native.load_library() is None,
-                                reason="native library unavailable")
+
+
+@pytest.fixture(autouse=True)
+def _native_library():
+    if native.load_library() is None:
+        pytest.skip("native library unavailable (build failed)")
 
 OBJ_TEXT = """
 v 0 0 0

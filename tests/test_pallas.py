@@ -1,11 +1,15 @@
-"""Interpret-mode parity tests for the Pallas TPU intersection kernels
-(ops/pallas/intersect.py) against the XLA dense reference path."""
+"""The GPU intersection kernels (ops/pallas/intersect.py) against the XLA
+dense reference path: interpret-mode parity on the CPU, the wrapper's
+padding, the kernel choice by platform, and the gradient rule."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from tuturenderer_tpu.ops import intersect as I
-from tuturenderer_tpu.ops.pallas.intersect import (pallas_tri_intersect,
-                                                   pallas_tri_occluded)
+from tuturenderer_tpu.ops.pallas import intersect as K
 from tuturenderer_tpu.scene.data import SceneBuilder
 from tuturenderer_tpu.utils.vec import Vec3
 
@@ -27,42 +31,36 @@ def random_scene_and_rays(n_tris=48, n_rays=256, seed=3):
     return s, o, d
 
 
-def xla_core(s, o, d):
-    old = I.DENSE_IMPL
-    I.DENSE_IMPL = "mt"
-    try:
-        return I.intersect_core(s, o, d)
-    finally:
-        I.DENSE_IMPL = old
+def assert_nearest_matches(got, ref):
+    """Tolerances of the kernel-vs-XLA comparison. Both sides are float32
+    elementwise arithmetic (no matrix product, so no TF32); they differ
+    only in operation order, hence knife-edge hits near triangle edges."""
+    t, idx, bu, bv = (np.asarray(a) for a in got)
+    hit_p = idx >= 0
+    hit_r = np.asarray(ref.hit)
+    assert (hit_p == hit_r).mean() > 0.99
+    both = hit_p & hit_r & (idx == np.asarray(ref.idx))
+    assert both.sum() >= 0.95 * hit_r.sum()
+    np.testing.assert_allclose(t[both], np.asarray(ref.t)[both], rtol=1e-4)
+    np.testing.assert_allclose(bu[both], np.asarray(ref.bu)[both], atol=1e-4)
+    np.testing.assert_allclose(bv[both], np.asarray(ref.bv)[both], atol=1e-4)
 
 
 def test_pallas_nearest_matches_xla():
     s, o, d = random_scene_and_rays()
-    ref = xla_core(s, o, d)
-    t, idx, bu, bv = pallas_tri_intersect(s, o, d, interpret=True)
-    hit_p = np.asarray(idx) >= 0
-    hit_r = np.asarray(ref.hit)
-    agree = hit_p == hit_r
-    assert agree.mean() > 0.99          # knife-edge float divergence only
-    both = hit_p & hit_r & (np.asarray(idx) == np.asarray(ref.idx))
-    assert both.sum() > 0.95 * hit_r.sum()
-    np.testing.assert_allclose(np.asarray(t)[both], np.asarray(ref.t)[both],
-                               rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(bu)[both], np.asarray(ref.bu)[both],
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(bv)[both], np.asarray(ref.bv)[both],
-                               atol=1e-4)
+    ref = I.intersect_core(s, o, d)
+    assert_nearest_matches(K.tri_nearest(s, o, d, interpret=True), ref)
 
 
 def test_pallas_anyhit_matches_xla_occlusion():
     s, o, d = random_scene_and_rays(seed=7)
-    ref = xla_core(s, o, d)
+    ref = I.intersect_core(s, o, d)
     for scale in (0.5, 1.0, 2.0):
         t_ref = np.asarray(jnp.where(ref.hit, ref.t, 1.0))
         dist = jnp.asarray(t_ref * scale + 0.3)
         want = np.asarray(ref.hit) & (np.asarray(ref.t) < np.asarray(dist)) & \
             (np.abs(np.asarray(ref.t) - np.asarray(dist)) >= I.PARALLEL_EPS)
-        got = np.asarray(pallas_tri_occluded(s, o, d, dist, interpret=True))
+        got = np.asarray(K.tri_occluded(s, o, d, dist, interpret=True))
         assert (got == want).mean() > 0.99
 
 
@@ -78,106 +76,102 @@ def test_pallas_anyhit_endpoint_guard():
     d = Vec3(jnp.zeros((4,)), jnp.zeros((4,)), jnp.ones((4,)))
     # within-eps endpoint (1.0, 1.0+5e-5) -> unoccluded; beyond eps -> occluded
     dist = jnp.asarray([2.0, 1.0, 0.5, 1.0 + 5e-5])
-    got = np.asarray(pallas_tri_occluded(s, o, d, dist, interpret=True))
+    got = np.asarray(K.tri_occluded(s, o, d, dist, interpret=True))
     assert got.tolist() == [True, False, False, False]
 
 
-def test_cluster_kernels_match_xla():
-    """Streaming cluster-culling kernels (large-scene path) vs XLA dense."""
-    from tuturenderer_tpu.ops.pallas.cluster import (cluster_intersect,
-                                                     cluster_occluded)
-    r = np.random.RandomState(5)
-    b = SceneBuilder()
-    m = b.add_material()
-    centers = r.randn(400, 3) * 3.0
-    b.add_triangles(
-        (centers[:, None, :] + 0.5 * r.randn(400, 3, 3)).astype(np.float32),
-        None, None, m)
-    s = b.build(use_bvh=True)          # forces clusters + BVH build
-    assert s.clusters is not None and s.clusters.n_clusters > 1
+@pytest.mark.parametrize("n_tris,n_rays", [(45, 300), (8, 128), (1, 5)])
+def test_pallas_pads_rays_and_table(n_tris, n_rays):
+    """Ray counts that are no multiple of the block and triangle counts
+    that are no multiple of the tile: padding lanes and zero rows must
+    not change any result, and the outputs keep the caller's length."""
+    s, o, d = random_scene_and_rays(n_tris=n_tris, n_rays=n_rays, seed=5)
+    table = K.pack_triangles(s)
+    assert table.shape == (-(-n_tris // K.TRI_TILE) * K.TRI_TILE * K.ROW,)
+    np.testing.assert_array_equal(np.asarray(table)[n_tris * K.ROW:], 0.0)
+    got = K.tri_nearest(s, o, d, interpret=True, block=128)
+    assert all(a.shape == (n_rays,) for a in got)
+    assert_nearest_matches(got, I.intersect_core(s, o, d))
+    dist = jnp.full((n_rays,), 4.0)
+    blocked = K.tri_occluded(s, o, d, dist, interpret=True, block=128)
+    assert blocked.shape == (n_rays,) and blocked.dtype == jnp.bool_
 
-    n = 128
-    o_np = (r.randn(n, 3) * 4.0).astype(np.float32)
-    d_np = r.randn(n, 3).astype(np.float32)
-    d_np /= np.linalg.norm(d_np, axis=1, keepdims=True)
-    o = Vec3(*[jnp.asarray(o_np[:, i]) for i in range(3)])
-    d = Vec3(*[jnp.asarray(d_np[:, i]) for i in range(3)])
 
-    ref = xla_core(s, o, d)
-    t, idx, bu, bv = cluster_intersect(s.clusters, o, d, rows=8,
-                                       interpret=True)
-    hit_p = np.asarray(idx) >= 0
-    hit_r = np.asarray(ref.hit)
-    assert (hit_p == hit_r).mean() > 0.99
-    both = hit_p & hit_r & (np.asarray(idx) == np.asarray(ref.idx))
-    assert both.sum() > 0.95 * hit_r.sum()
-    np.testing.assert_allclose(np.asarray(t)[both], np.asarray(ref.t)[both],
-                               rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(bu)[both], np.asarray(ref.bu)[both],
-                               atol=1e-4)
+def _spy_kernels(monkeypatch):
+    """Route the kernels to interpret mode and record their calls."""
+    calls = []
 
-    t_ref = np.asarray(jnp.where(ref.hit, ref.t, 1.0))
-    dist = jnp.asarray(t_ref + 0.5)
-    want = np.asarray(ref.hit) & (np.asarray(ref.t) < np.asarray(dist)) & \
-        (np.abs(np.asarray(ref.t) - np.asarray(dist)) >= I.PARALLEL_EPS)
-    got = np.asarray(cluster_occluded(s.clusters, o, d, dist, rows=8,
-                                      interpret=True))
+    def spy(fn):
+        @functools.wraps(fn)
+        def wrapped(*a, **kw):
+            calls.append(fn.__name__)
+            return fn(*a, interpret=True, **kw)
+        return wrapped
+
+    monkeypatch.setattr(K, "tri_nearest", spy(K.tri_nearest))
+    monkeypatch.setattr(K, "tri_occluded", spy(K.tri_occluded))
+    return calls
+
+
+@pytest.mark.parametrize("backend,use_bvh,want", [
+    ("gpu", False, ["tri_nearest", "tri_occluded"]),
+    ("cpu", False, []),
+    ("gpu", True, []),
+])
+def test_kernel_choice_by_platform(monkeypatch, backend, use_bvh, want):
+    """Dense triangle scenes take the kernels exactly when the default
+    backend is the GPU; BVH scenes never do."""
+    s, o, d = random_scene_and_rays(n_tris=16, n_rays=64, seed=1)
+    if use_bvh:
+        b = SceneBuilder()
+        b.add_triangles(np.stack([np.asarray(v.stack()) for v in
+                                  (s.tv0, s.tv1, s.tv2)], axis=1),
+                        None, None, b.add_material())
+        s = b.build(use_bvh=True)
+        assert s.bvh is not None
+    calls = _spy_kernels(monkeypatch)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert I._use_kernel() == (backend == "gpu")
+    I.intersect_core(s, o, d)
+    I.occluded(s, o, d, jnp.full((64,), 3.0))
+    assert calls == want
+
+
+def test_gradient_through_kernel_path_matches_xla(monkeypatch):
+    """jax.grad of render_diff through the kernels (tangents stripped at
+    the kernel boundary) equals the XLA path's gradient."""
+    from tuturenderer_tpu.grad import get_params, render_diff
+    from tuturenderer_tpu.options import RenderOptions
+    from tuturenderer_tpu.scene.presets import cornell_box
+
+    scene, cam = cornell_box(width=8, height=8)
+    opts = RenderOptions(spp=1, max_depth=2)
+    params = get_params(scene)
+
+    def grad():
+        return jax.grad(lambda p: jnp.mean(
+            render_diff(p, scene, cam, opts, 3)))(params)
+
+    ref = grad()
+    calls = _spy_kernels(monkeypatch)
+    monkeypatch.setattr(I, "_use_kernel", lambda: True)
+    got = grad()
+    assert "tri_nearest" in calls and "tri_occluded" in calls
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=1e-4, atol=1e-6)
+    assert any(np.abs(np.asarray(a)).max() > 0 for a in jax.tree.leaves(ref))
+
+
+@pytest.mark.gpu
+def test_kernels_compiled_for_the_card_match_xla(gpu):
+    """The kernels as compiled for the card (no interpret mode) against
+    the XLA reference on the same card."""
+    s, o, d = random_scene_and_rays(n_tris=300, n_rays=4096, seed=2)
+    ref = I.xla_nearest(s, o, d)
+    assert_nearest_matches(K.tri_nearest(s, o, d), ref)
+    dist = jnp.where(ref.hit, ref.t, 1.0) * 1.5 + 0.2
+    want = np.asarray(ref.hit) & (np.asarray(ref.t) < np.asarray(dist))
+    got = np.asarray(K.tri_occluded(s, o, d, dist))
     assert (got == want).mean() > 0.99
 
-
-def test_cluster_sorted_matches_unsorted():
-    """Octant-Morton ray sorting must not change results."""
-    from tuturenderer_tpu.ops.pallas.cluster import cluster_intersect
-    r = np.random.RandomState(9)
-    b = SceneBuilder()
-    m = b.add_material()
-    centers = r.randn(300, 3) * 3.0
-    b.add_triangles(
-        (centers[:, None, :] + 0.5 * r.randn(300, 3, 3)).astype(np.float32),
-        None, None, m)
-    s = b.build(use_bvh=True)
-    n = 128
-    o_np = (r.randn(n, 3) * 4.0).astype(np.float32)
-    d_np = r.randn(n, 3).astype(np.float32)
-    d_np /= np.linalg.norm(d_np, axis=1, keepdims=True)
-    o = Vec3(*[jnp.asarray(o_np[:, i]) for i in range(3)])
-    d = Vec3(*[jnp.asarray(d_np[:, i]) for i in range(3)])
-    t0, i0, u0, v0 = cluster_intersect(s.clusters, o, d, rows=8,
-                                       interpret=True)
-    t1, i1, u1, v1 = cluster_intersect(s.clusters, o, d, rows=8, sort=True,
-                                       interpret=True)
-    np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-    np.testing.assert_allclose(np.asarray(t0), np.asarray(t1))
-
-
-def test_cluster_transmittance_matches_dense():
-    """Alpha-weighted shadow transmittance: the cluster kernel must equal
-    the dense all-primitive product of (1 - alpha) over crossed
-    triangles (getShadowCoeffi semantics, BVHStrategy.hpp:13-45)."""
-    from tuturenderer_tpu.ops.intersect import transmittance
-    from tuturenderer_tpu.ops.pallas.cluster import cluster_transmittance
-
-    r = np.random.RandomState(11)
-    b = SceneBuilder()
-    m1 = b.add_material(alpha=0.3)
-    m2 = b.add_material(alpha=0.85)
-    centers = r.randn(300, 3) * 3.0
-    tris = (centers[:, None, :] + 0.5 * r.randn(300, 3, 3)).astype(np.float32)
-    b.add_triangles(tris[:150], None, None, m1)
-    b.add_triangles(tris[150:], None, None, m2)
-    s = b.build(use_bvh=True)
-    assert s.clusters is not None
-
-    n = 128
-    o_np = (r.randn(n, 3) * 4.0).astype(np.float32)
-    d_np = r.randn(n, 3).astype(np.float32)
-    d_np /= np.linalg.norm(d_np, axis=1, keepdims=True)
-    o = Vec3(*[jnp.asarray(o_np[:, i]) for i in range(3)])
-    d = Vec3(*[jnp.asarray(d_np[:, i]) for i in range(3)])
-    dist = jnp.full((n,), 6.0)
-
-    want = np.asarray(transmittance(s, o, d, dist))   # dense path on CPU
-    got = np.asarray(cluster_transmittance(s.clusters, o, d, dist,
-                                           interpret=True))
-    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-    assert (want < 1.0).any() and (want > 0.0).any()  # nontrivial case

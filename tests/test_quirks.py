@@ -1,7 +1,7 @@
 """Each reference-quirk compat knob exercises its documented deviation.
 
 The reference carries estimator quirks (SURVEY.md quirks catalog) that the
-TPU framework fixes by default and reproduces behind static RenderOptions/
+renderer fixes by default and reproduces behind static RenderOptions/
 SceneBuilder flags. These tests pin each knob to the SPECIFIC deviation it
 claims to reproduce, so the parity switches stay verified code paths:
 

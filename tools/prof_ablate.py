@@ -24,7 +24,7 @@ from tuturenderer_tpu.ops.intersect import HitCore, intersect_core, occluded
 
 scene, cam = sphere_showcase(width=512, height=512)
 SPP = int(os.environ.get("PA_SPP", "16"))
-# bench schedule (measured fracs from BENCH_r03)
+# compaction schedule from the scene's live-lane fractions per bounce
 fracs = [1.0, 0.606, 0.213, 0.068, 0.033, 0.019, 0.005, 0.002]
 sched = tuple(float(min(1.0, max(2.0 * f, 0.01))) for f in fracs)
 opts = RenderOptions(spp=SPP, compaction=sched, samples_per_launch=SPP)

@@ -1,5 +1,5 @@
-"""Communication-volume evidence for the multi-chip design (NOT a TPU
-measurement — this environment has one chip; see docs/PERF_R5.md).
+"""Communication-volume evidence for the multi-device design (a count of
+bytes from compiled programs on virtual CPU devices, not a device timing).
 
 Scaling efficiency on real hardware is compute_time / (compute_time +
 exposed collective time). What CAN be measured honestly here is the
@@ -28,21 +28,13 @@ if REPO not in sys.path:
 
 def main():
     import jax
-    jax.config.update("jax_platforms", "cpu")
     if len(jax.devices()) < 8:
         env = dict(os.environ)
         env["JAX_PLATFORMS"] = "cpu"
         env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "") +
                             " --xla_force_host_platform_device_count=8").strip()
-        env["JAX_COMPILATION_CACHE_DIR"] = "/tmp/tutu_scaling_cache"
         r = subprocess.run([sys.executable, os.path.abspath(__file__)],
-                           env=env, capture_output=True, text=True)
-        absl = re.compile(r"^[EWI]\d{4} |^WARNING:")
-        kept = [ln for ln in r.stderr.splitlines()
-                if not absl.match(ln) and "cpu_aot_loader" not in ln]
-        if kept:
-            print("\n".join(kept), file=sys.stderr)
-        print(r.stdout, end="")
+                           env=env)
         sys.exit(r.returncode)
 
     import numpy as np

@@ -15,7 +15,7 @@ import os
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="tuturenderer_tpu",
-        description="TPU-native differentiable path tracer")
+        description="differentiable path tracer")
     ap.add_argument("config", help="scene config file (reference grammar)")
     ap.add_argument("--spp", type=int, default=64)
     ap.add_argument("--max-depth", type=int, default=6)

@@ -81,13 +81,10 @@ def render_diff(params: MaterialParams, scene: SceneData, cam: Camera,
     path-replay backward pass: memory O(1) in spp).
 
     Honors ``opts.samples_per_launch`` and emits lanes in the same 32x32
-    screen-block order as the forward renderer: the cluster intersector's
-    beam culling feeds on wide coherent wavefronts, and at small frames a
-    one-sample launch leaves the kernels dispatch-bound (the round-4
-    sphere fwd+bwd bench ran 65k-lane launches — most of its 5.6x
-    fwd->fwd+bwd drop was launch shape, not backward cost). The RNG
-    stream is keyed by (pixel, sample), so the result is identical to
-    the one-sample-at-a-time schedule."""
+    screen-block order as the forward renderer: at small frames a
+    one-sample launch leaves the device dispatch-bound, so wider
+    wavefronts pay. The RNG stream is keyed by (pixel, sample), so the
+    result is identical to the one-sample-at-a-time schedule."""
     import numpy as _np
 
     from .integrators.path import _block_order

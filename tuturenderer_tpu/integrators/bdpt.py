@@ -1,6 +1,6 @@
 """Bidirectional path tracing with per-strategy power-heuristic MIS.
 
-Re-architecture of BDPT (BDPT.hpp:59-900) for the TPU wavefront model:
+Re-architecture of BDPT (BDPT.hpp:59-900) for the wavefront model:
 
 - eye and light subpaths are built by static-depth loops into fixed-size
   per-vertex field sets (the SoA replacement for the reference's
@@ -672,14 +672,8 @@ def render_sample_bdpt(scene, cam: Camera, px, py, lane, sample_idx, seed,
                      cat([v.z for v in occl_o]))
         all_d = Vec3(cat([v.x for v in occl_d]), cat([v.y for v in occl_d]),
                      cat([v.z for v in occl_d]))
-        # presorted=True: the concatenated wavefront is already
-        # strategy-blocked (each block's origins follow pixel order and
-        # its directions converge on one light/the camera), and a Morton
-        # re-sort of ~27n rays would cost two packed permutes of the
-        # whole buffer (~30ns/row, tools/prof_gather.py) — more than the
-        # coherence it buys
         blocked_all = occluded(scene, all_o, all_d, cat(occl_dist),
-                               mask=cat(occl_mask), presorted=True)
+                               mask=cat(occl_mask))
         blocked_rows = blocked_all.reshape(len(occl_o), n)
         for rec in pending:
             ok = rec['ok'] & ~blocked_rows[rec['q']]

@@ -1,5 +1,8 @@
 """ASCII PPM (P3) read/write, plus PNG convenience output.
 
+PNG is written with the standard library alone (zlib + struct); reading
+PNG (``--invert`` targets) needs Pillow.
+
 Mirrors the reference's image I/O: loadTexture parses P3 with values
 normalized by the max field (PPMGenerator.hpp:1027-1084); generate/
 writePixel emit P3 with clamp + gamma 0.78 quantization
@@ -7,6 +10,9 @@ writePixel emit P3 with clamp + gamma 0.78 quantization
 writePixel does (PPMGenerator.hpp:819-823).
 """
 from __future__ import annotations
+
+import struct
+import zlib
 
 import numpy as np
 
@@ -29,7 +35,11 @@ def read_ppm(path: str) -> np.ndarray:
 
 def read_png(path: str) -> np.ndarray:
     """-> float32 [H, W, 3] in [0, 1]."""
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError(f"{path}: reading PNG needs Pillow, which is not "
+                           "installed; convert the image to PPM (P3)") from None
     arr = np.asarray(Image.open(path).convert("RGB"), np.float32)
     return arr / 255.0
 
@@ -58,5 +68,18 @@ def write_ppm(path: str, img: np.ndarray, gamma: float = GAMMA_VAL) -> None:
 
 
 def write_png(path: str, img: np.ndarray, gamma: float = GAMMA_VAL) -> None:
-    from PIL import Image
-    Image.fromarray(quantize(np.asarray(img), gamma)).save(path)
+    """8-bit RGB PNG, one IDAT chunk, filter type 0 on every row."""
+    q = quantize(np.asarray(img), gamma)
+    h, w, _ = q.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), q.reshape(h, w * 3)],
+                         axis=1).tobytes()
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + \
+            struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
+        f.write(chunk(b"IEND", b""))

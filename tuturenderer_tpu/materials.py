@@ -3,8 +3,8 @@
 Re-derives the reference material model (Material.hpp:62-439: LAMBERTIAN,
 PERFECT_REFLECTIVE, PERFECT_REFRACTIVE, MICROFACET_R Cook-Torrance GGX,
 MICROFACET_T rough dielectric, UNLIT) as branch-free masked arithmetic:
-every lane computes every material branch on the VPU and one select picks
-the active one — the TPU replacement for virtual dispatch. Shading-normal
+every lane computes every material branch and one select picks the
+active one — the wavefront replacement for virtual dispatch. Shading-normal
 correction |wi.Ns|/|wi.Ng| and the adjoint swap for light tracing
 (Material.hpp:70-74) are preserved.
 
@@ -61,13 +61,12 @@ class MatParams(NamedTuple):
 def _mat_gather(cols, idx):
     """tuple of [M] columns -> tuple of [N] lookups.
 
-    Forward: plain per-column gathers — XLA:TPU lowers small-table
-    column gathers to select trees, effectively free (a stacked [M,F]
-    row gather or a one-hot matmul both measured slower on the Cornell
-    forward). Backward: grad_table = onehot^T @ stacked(g) — ONE MXU
-    matmul; the default transpose is a scatter-add whose TPU lowering
-    serializes on index collisions and dominated the round-2 backward
-    pass (fwd+bwd 13.6M -> 43M rays/s)."""
+    Forward: plain per-column gathers. Backward: grad_table =
+    onehot^T @ stacked(g), one matrix product in place of the default
+    scatter-add transpose, which serialised on index collisions on an
+    earlier accelerator. Not measured on the H100 (ROADMAP D3). The
+    product runs at HIGHEST precision so gradients are not rounded to
+    TF32."""
     return tuple(c[idx] for c in cols)
 
 
@@ -80,6 +79,7 @@ def _mat_gather_bwd(res, g):
     onehot = (idx[:, None] == jnp.arange(m, dtype=idx.dtype)[None, :])
     gs = jnp.stack(list(g), axis=1)                       # [N, F]
     gt = jnp.dot(onehot.astype(gs.dtype).T, gs,
+                 precision=jax.lax.Precision.HIGHEST,
                  preferred_element_type=jnp.float32)      # [M, F]
     return tuple(gt[:, j] for j in range(gt.shape[1])), None
 

@@ -4,7 +4,7 @@ The reference ships only static OBJ assets (model/, loaded by
 OBJ_Loader.h); its large-mesh showcase assets (bunny/buddha, README.md
 images) were stripped from the repository. These generators produce
 equivalent large-triangle-count geometry for exercising and benchmarking
-the large-scene (cluster-kernel) path without binary assets.
+the large-scene (BVH) path without binary assets.
 
 All return ``verts [n, 3, 3]`` float32 (optionally with smooth normals
 ``[n, 3, 3]``), directly consumable by SceneBuilder.add_triangles.

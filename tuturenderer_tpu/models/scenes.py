@@ -1,10 +1,9 @@
 """Large-scene model presets built from procedural geometry.
 
 Complement scene/presets.py (which mirrors the reference mains): these
-exercise the large-mesh path — cluster-kernel intersection on TPU
-(ops/pallas/cluster.py), flattened-BVH traversal elsewhere — at triangle
-counts comparable to the reference's stripped bunny/buddha showcases
-(README.md:88-116).
+exercise the large-mesh path — flattened-BVH traversal (ops/bvh.py) — at
+triangle counts comparable to the reference's stripped bunny/buddha
+showcases (README.md:88-116).
 """
 from __future__ import annotations
 

@@ -1,16 +1,17 @@
 """ctypes bindings to the native host runtime (native/libtutuhost.so).
 
 The reference's host layer is all C++ (OBJ loader OBJ_Loader.h, BVH build
-BVH.hpp:47-123, PPM I/O PPMGenerator.hpp); this module binds the TPU
-framework's native equivalents and transparently falls back to the pure
-Python implementations when the library is missing. The library is built
-on demand with the in-repo Makefile (no network, no pip).
+BVH.hpp:47-123, PPM I/O PPMGenerator.hpp); this module binds the native
+equivalents and falls back to the pure Python implementations when the
+library cannot be built. The library is built from native/host.cpp with
+the in-repo Makefile on first use (no network, no pip).
 """
 from __future__ import annotations
 
 import ctypes as ct
 import os
 import subprocess
+import sys
 from typing import Optional
 
 import numpy as np
@@ -48,21 +49,45 @@ class _PpmResult(ct.Structure):
                 ("w", ct.c_int32), ("h", ct.c_int32), ("ok", ct.c_int32)]
 
 
+def _build() -> bool:
+    """Compile native/host.cpp to a temporary name and rename it into
+    place, so concurrent processes never load a half-written library.
+    Prints why when the build fails."""
+    tmp = f"{_LIB_PATH}.tmp{os.getpid()}"
+    try:
+        subprocess.run(["make", "-s", "-C", _NATIVE_DIR, "-B",
+                        f"OUT={os.path.basename(tmp)}"],
+                       check=True, capture_output=True, text=True,
+                       timeout=300)
+        os.replace(tmp, _LIB_PATH)
+        return True
+    except (OSError, subprocess.SubprocessError) as e:
+        detail = getattr(e, "stderr", None) or str(e)
+        print(f"tuturenderer_tpu: native library build failed, using the "
+              f"pure-Python fallbacks: {detail.strip()}", file=sys.stderr)
+        return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
 def load_library() -> Optional[ct.CDLL]:
-    """Load (building if necessary) the native library; None on failure."""
+    """Load (building if missing or older than host.cpp) the native
+    library; None on failure."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
+    src = os.path.join(_NATIVE_DIR, "host.cpp")
+    stale = not os.path.exists(_LIB_PATH) or \
+        os.path.getmtime(_LIB_PATH) < os.path.getmtime(src)
+    if stale and not _build():
+        return None
     try:
         lib = ct.CDLL(_LIB_PATH)
-    except OSError:
+    except OSError as e:
+        print(f"tuturenderer_tpu: cannot load {_LIB_PATH}, using the "
+              f"pure-Python fallbacks: {e}", file=sys.stderr)
         return None
     lib.tutu_obj_load.restype = ct.POINTER(_ObjResult)
     lib.tutu_obj_load.argtypes = [ct.c_char_p]

@@ -3,7 +3,7 @@
 The reference builds a binary BVH with one primitive per leaf by sorting
 on the longest-axis centroid and splitting at the median
 (BVHAccel::recursiveBuild, BVH.hpp:47-123), then traverses recursively
-visiting BOTH children unconditionally (BVH.hpp:145-167). The TPU
+visiting BOTH children unconditionally (BVH.hpp:145-167). The
 re-design:
 
 - build on host (numpy) with the same median-split heuristic but
@@ -33,7 +33,9 @@ from .intersect import F32_MAX, PARALLEL_EPS, HitCore
 
 LEAF_SIZE = 4
 MAX_STACK = 64
-BVH_THRESHOLD = 4096  # dense streaming beats traversal below this
+# dense streaming below this many triangles, BVH traversal above. Tuned on
+# an earlier accelerator; not measured on the H100 (ROADMAP S2).
+BVH_THRESHOLD = 4096
 
 
 class FlatBVH(NamedTuple):

@@ -24,28 +24,19 @@ import jax.numpy as jnp
 
 from ..scene.data import SPHERE, TRIANGLE, SceneData
 from ..utils.vec import Vec3, where as vwhere
+from .pallas import intersect as tri_kernel
 
 F32_MAX = jnp.float32(3.4e38)
 PARALLEL_EPS = 1e-4  # FLOAT_EQUAL threshold, global.hpp:134-136
 
-# triangles per inner chunk; keeps the [N, C] virtual tile register-friendly
+# triangles per inner chunk of the XLA form; keeps the [N, C] tile bounded
 CHUNK = 512
 
-# dense triangle test implementation, measured on TPU v5e at 1M rays
-# (on-device, Cornell's 32 triangles):
-#   pallas  5.5 ms/traversal (190 M rays/s) — ray-shaped tiles, scalar tris
-#   mt     21.3 ms (49 M rays/s)            — XLA [N,T] tiles, minor dim 32
-#   woop   slower than mt (K=3 matmuls + [N,3T] materialization)
-# "auto" = pallas on TPU, mt elsewhere (interpret-mode pallas is too slow
-# for the CPU test suite).
-DENSE_IMPL = "auto"
 
-
-def _dense_impl():
-    if DENSE_IMPL != "auto":
-        return DENSE_IMPL
-    import jax
-    return "pallas" if jax.default_backend() == "tpu" else "mt"
+def _use_kernel() -> bool:
+    """Dense triangle scenes take the Triton kernels (ops/pallas/intersect.py)
+    on the GPU and the XLA chunk loop below everywhere else."""
+    return jax.default_backend() == "gpu"
 
 
 class HitCore(NamedTuple):
@@ -141,47 +132,6 @@ def _tri_chunk_best(scene: SceneData, orig: Vec3, d: Vec3, lo: int, size: int,
     )
 
 
-def _tri_chunk_best_woop(scene: SceneData, orig: Vec3, d: Vec3, lo: int,
-                         size: int, best: HitCore) -> HitCore:
-    """MXU path: per-triangle inverse-basis rows turn the ray-triangle
-    test into two [N,3] x [3,3C] matmuls plus a short VPU epilogue.
-    Produces the same accept set as the Moller-Trumbore chunk (strict
-    t/u/v positivity, |dir.n_hat| >= 1e-4) up to float rounding."""
-    w = jax.lax.dynamic_slice_in_dim(scene.woop_w, 3 * lo, 3 * size, axis=1)
-    c = jax.lax.dynamic_slice_in_dim(scene.woop_c, 3 * lo, 3 * size, axis=0)
-    nlen = jax.lax.dynamic_slice_in_dim(scene.woop_nlen, lo, size, axis=0)
-
-    o_mat = jnp.stack([orig.x, orig.y, orig.z], axis=1)      # [N,3]
-    d_mat = jnp.stack([d.x, d.y, d.z], axis=1)
-    od = jnp.dot(o_mat, w, preferred_element_type=jnp.float32) - c[None, :]
-    dd = jnp.dot(d_mat, w, preferred_element_type=jnp.float32)
-    od = od.reshape(-1, size, 3)
-    dd = dd.reshape(-1, size, 3)
-
-    w_o = od[:, :, 2]
-    w_d = dd[:, :, 2]
-    inv_wd = 1.0 / jnp.where(w_d == 0.0, 1.0, w_d)
-    t = -w_o * inv_wd
-    u = od[:, :, 0] + t * dd[:, :, 0]
-    v = od[:, :, 1] + t * dd[:, :, 1]
-    dn = w_d * nlen[None, :]          # dir . n_hat
-    ok = (jnp.abs(dn) >= PARALLEL_EPS) & (w_d != 0.0) & \
-        (t > 0.0) & (u > 0.0) & (v > 0.0) & (1.0 - u - v > 0.0)
-    t = jnp.where(ok, t, F32_MAX)
-
-    j = jnp.argmin(t, axis=1)
-    rows = jnp.arange(t.shape[0])
-    t_min = t[rows, j]
-    better = t_min < best.t
-    return HitCore(
-        t=jnp.where(better, t_min, best.t),
-        kind=jnp.where(better, TRIANGLE, best.kind),
-        idx=jnp.where(better, (lo + j).astype(jnp.int32), best.idx),
-        bu=jnp.where(better, u[rows, j], best.bu),
-        bv=jnp.where(better, v[rows, j], best.bv),
-    )
-
-
 def _sphere_best(scene: SceneData, orig: Vec3, d: Vec3, best: HitCore) -> HitCore:
     s = scene.n_spheres
     if s == 0:
@@ -217,11 +167,9 @@ def _sphere_best(scene: SceneData, orig: Vec3, d: Vec3, best: HitCore) -> HitCor
 
 def _mask_rays(orig: Vec3, d: Vec3, mask):
     """Replace dead lanes with a degenerate ray far outside the scene
-    pointing away from it: it fails every slab/triangle/sphere test, and
-    after Morton sorting all dead lanes group into tiles that cull
-    everything — without this, dead lanes carry stale directions from
-    their last bounce, destroying tile coherence for the cluster kernel
-    while producing results nobody reads."""
+    pointing away from it: it fails every slab/triangle/sphere test, so
+    BVH traversal retires it at the root and no stale direction from its
+    last bounce produces a hit that nobody reads."""
     far = jnp.float32(-1e7)
     zero = jnp.zeros_like(d.x)
     orig = Vec3(jnp.where(mask, orig.x, far), jnp.where(mask, orig.y, far),
@@ -231,61 +179,44 @@ def _mask_rays(orig: Vec3, d: Vec3, mask):
     return orig, d
 
 
+def _no_hit(n: int) -> HitCore:
+    return HitCore(t=jnp.full((n,), F32_MAX),
+                   kind=jnp.zeros((n,), jnp.int32),
+                   idx=jnp.full((n,), -1, jnp.int32),
+                   bu=jnp.zeros((n,)), bv=jnp.zeros((n,)))
+
+
+def xla_nearest(scene: SceneData, orig: Vec3, d: Vec3) -> HitCore:
+    """Nearest triangle hit in plain XLA: the chunk loop over the whole
+    table. The reference the GPU kernel is checked against."""
+    best = _no_hit(orig.x.shape[0])
+    lo = 0
+    while lo < scene.n_tris:
+        size = min(CHUNK, scene.n_tris - lo)
+        best = _tri_chunk_best(scene, orig, d, lo, size, best)
+        lo += size
+    return best
+
+
 def intersect_core(scene: SceneData, orig: Vec3, d: Vec3,
-                   mask=None, presorted: bool = False) -> HitCore:
+                   mask=None) -> HitCore:
     """Nearest hit of each ray against the whole scene. Uses the flattened
     BVH when the scene carries one (large meshes); dense streaming
     otherwise — the strategy selection mirroring the reference's EXPEDITE
     switch (Renderer.hpp:38-39), decided per scene at build time.
 
     ``mask`` (optional bool [N]): lanes with mask=False are dead wavefront
-    lanes; they are traced as degenerate never-hit rays (see _mask_rays)
-    so they cost nothing in the tile-culling kernels.
-
-    ``presorted=True``: the caller guarantees the wavefront is already in
-    octant-Morton tile order (the path integrator keeps its wavefront
-    permanently sorted); the cluster path then skips its own sort +
-    permute round-trip — at multi-M lane counts the two packed row
-    gathers per pass are a triple-digit-ms cost (latency-bound ~20ns/row,
-    see tools/prof_gather.py)."""
+    lanes; they are traced as degenerate never-hit rays (see _mask_rays)."""
     if mask is not None:
         orig, d = _mask_rays(orig, d, mask)
-    if scene.clusters is not None and _dense_impl() == "pallas":
-        from .pallas.cluster import cluster_intersect
-        # Pallas kernels have no JVP rule; detached-sampling autodiff
-        # treats visibility as piecewise-constant anyway (grad.py), but
-        # the sorted-wavefront permute packs ray columns together with
-        # tangent-carrying throughput columns, leaving o/d with
-        # symbolically-nonzero (numerically zero) tangents — strip them
-        # at the kernel boundary, which is exact
-        orig, d = jax.lax.stop_gradient((orig, d))
-        t, idx, bu, bv = cluster_intersect(scene.clusters, orig, d,
-                                           sort=not presorted,
-                                           live=mask if presorted else None)
-        best = HitCore(t=t, kind=jnp.zeros_like(idx), idx=idx, bu=bu, bv=bv)
-    elif scene.bvh is not None:
+    if scene.bvh is not None:
         from .bvh import bvh_intersect
         best = bvh_intersect(scene, scene.bvh, orig, d)
-    elif _dense_impl() == "pallas" and scene.n_tris:
-        from .pallas.intersect import pallas_tri_intersect
-        t, idx, bu, bv = pallas_tri_intersect(scene, orig, d)
+    elif scene.n_tris and _use_kernel():
+        t, idx, bu, bv = tri_kernel.tri_nearest(scene, orig, d)
         best = HitCore(t=t, kind=jnp.zeros_like(idx), idx=idx, bu=bu, bv=bv)
     else:
-        n = orig.x.shape[0]
-        best = HitCore(
-            t=jnp.full((n,), F32_MAX),
-            kind=jnp.zeros((n,), jnp.int32),
-            idx=jnp.full((n,), -1, jnp.int32),
-            bu=jnp.zeros((n,)), bv=jnp.zeros((n,)),
-        )
-        t_count = scene.n_tris
-        chunk_fn = _tri_chunk_best_woop if _dense_impl() == "woop" \
-            else _tri_chunk_best
-        lo = 0
-        while lo < t_count:
-            size = min(CHUNK, t_count - lo)
-            best = chunk_fn(scene, orig, d, lo, size, best)
-            lo += size
+        best = xla_nearest(scene, orig, d)
     best = _sphere_best(scene, orig, d, best)
     # set idx=-1 lanes consistent
     miss = best.t >= F32_MAX
@@ -294,69 +225,50 @@ def intersect_core(scene: SceneData, orig: Vec3, d: Vec3,
 
 def _sphere_occluded(scene: SceneData, orig: Vec3, d: Vec3, dist) -> jnp.ndarray:
     """Any sphere hit with t < dist (+ FLOAT_EQUAL endpoint guard)."""
-    best = _sphere_best(scene, orig, d, HitCore(
-        t=jnp.full((orig.x.shape[0],), F32_MAX),
-        kind=jnp.zeros((orig.x.shape[0],), jnp.int32),
-        idx=jnp.full((orig.x.shape[0],), -1, jnp.int32),
-        bu=jnp.zeros((orig.x.shape[0],)), bv=jnp.zeros((orig.x.shape[0],))))
+    best = _sphere_best(scene, orig, d, _no_hit(orig.x.shape[0]))
     return best.hit & (best.t < dist) & (jnp.abs(best.t - dist) >= PARALLEL_EPS)
 
 
 def occluded(scene: SceneData, orig: Vec3, d: Vec3, dist,
-             mask=None, presorted: bool = False) -> jnp.ndarray:
+             mask=None) -> jnp.ndarray:
     """Any-hit within ``dist`` (shadow ray). Mirrors hasIntersection
     (BVH.hpp:170-194) incl. the FLOAT_EQUAL guard at the endpoint.
 
-    Dense TPU scenes take the dedicated Pallas any-hit kernel (a single
-    boolean reduction, no nearest-hit bookkeeping); spheres and
-    BVH/fallback paths reuse the nearest-hit traversal. (Equivalent
-    results either way: if the nearest hit fails the endpoint guard, no
-    farther hit can pass it, since passing requires t <= dist - eps.)
+    BVH scenes take the early-out any-hit traversal and dense scenes on
+    the GPU the any-hit kernel; the dense XLA form reuses the nearest-hit
+    search. (Equivalent results: if the nearest hit fails the endpoint
+    guard, no farther hit can pass it, since passing requires
+    t <= dist - eps.)
 
     ``mask`` as in intersect_core: dead lanes become degenerate rays with
     dist 0 and always report unblocked."""
     if mask is not None:
         orig, d = _mask_rays(orig, d, mask)
         dist = jnp.where(mask, dist, 0.0)
-    if scene.clusters is not None and _dense_impl() == "pallas":
-        from .pallas.cluster import cluster_occluded
-        # tangent-strip at the Pallas boundary (see intersect_core)
-        orig, d, dist = jax.lax.stop_gradient((orig, d, dist))
-        blocked = cluster_occluded(scene.clusters, orig, d, dist,
-                                   sort=not presorted,
-                                   live=mask if presorted else None)
-        if scene.n_spheres:
-            blocked = blocked | _sphere_occluded(scene, orig, d, dist)
-        return blocked
-    if scene.bvh is None and _dense_impl() == "pallas" and scene.n_tris:
-        from .pallas.intersect import pallas_tri_occluded
-        blocked = pallas_tri_occluded(scene, orig, d, dist)
-        if scene.n_spheres:
-            blocked = blocked | _sphere_occluded(scene, orig, d, dist)
-        return blocked
     if scene.bvh is not None:
-        # dedicated any-hit early-out traversal (hasIntersection,
-        # BVH.hpp:170-194) instead of full nearest-hit work
         from .bvh import bvh_occluded
         blocked = bvh_occluded(scene, scene.bvh, orig, d, dist)
-        if scene.n_spheres:
-            blocked = blocked | _sphere_occluded(scene, orig, d, dist)
-        return blocked
-    core = intersect_core(scene, orig, d)
-    return core.hit & (core.t < dist) & (jnp.abs(core.t - dist) >= PARALLEL_EPS)
+    elif scene.n_tris and _use_kernel():
+        blocked = tri_kernel.tri_occluded(scene, orig, d, dist)
+    else:
+        core = intersect_core(scene, orig, d)
+        return core.hit & (core.t < dist) & \
+            (jnp.abs(core.t - dist) >= PARALLEL_EPS)
+    if scene.n_spheres:
+        blocked = blocked | _sphere_occluded(scene, orig, d, dist)
+    return blocked
 
 
 def transmittance(scene: SceneData, orig: Vec3, d: Vec3, dist,
-                  mask=None, presorted: bool = False) -> jnp.ndarray:
+                  mask=None) -> jnp.ndarray:
     """Alpha-weighted shadow coefficient: the product of ``(1 - alpha)``
     over EVERY primitive the shadow ray crosses within ``dist`` — the
     strategy layer's getShadowCoeffi/ShadowHelper (BVHStrategy.hpp:13-45,
     BaseInterStrategy.hpp:25-43; multiplicative accumulation at
     BVHStrategy.hpp:38-44). Fully opaque occluders (alpha=1) yield 0;
-    translucent ones attenuate. Dense all-primitive evaluation for small
-    scenes (the reference visits every overlapped leaf); clustered scenes
-    take the Pallas tile-culling transmittance kernel, so alpha shadows
-    stay O(tiles x culled clusters) instead of O(rays x primitives).
+    translucent ones attenuate. Dense all-primitive evaluation on every
+    scene, O(rays x primitives) (the reference visits every overlapped
+    leaf; a BVH-accelerated form is queued in ROADMAP.md).
     """
     n = orig.x.shape[0]
     trans = jnp.ones((n,), jnp.float32)
@@ -366,17 +278,6 @@ def transmittance(scene: SceneData, orig: Vec3, d: Vec3, dist,
     if mask is not None:
         orig, d = _mask_rays(orig, d, mask)
         dist = jnp.where(mask, dist, 0.0)
-
-    if scene.clusters is not None and _dense_impl() == "pallas":
-        from .pallas.cluster import cluster_transmittance
-        # tangent-strip at the Pallas boundary (see intersect_core)
-        orig, d, dist = jax.lax.stop_gradient((orig, d, dist))
-        trans = cluster_transmittance(scene.clusters, orig, d, dist,
-                                      sort=not presorted,
-                                      live=mask if presorted else None)
-        if scene.n_spheres:
-            trans = trans * _sphere_transmittance(scene, orig, d, dist)
-        return trans
 
     # triangles, in chunks: every accepted hit with t < dist attenuates
     lo = 0
@@ -453,16 +354,10 @@ def shade_hit(scene: SceneData, orig: Vec3, d: Vec3, core: HitCore) -> HitRecord
     zerov = Vec3(zeros, zeros, zeros)
 
     # triangle attributes. Two gather strategies, chosen by table size:
-    # tiny tables -> per-column gathers (XLA lowers them to vectorized
-    # select trees up to ~64 rows: ~2-3 ms at 960k lanes); anything
-    # bigger -> ONE packed-row gather from tri_shade. The crossover is
-    # sharp: from T=128 XLA switches a column gather to a serial per-lane
-    # loop (~6.4 ms PER COLUMN at 960k lanes regardless of T — the
-    # round-4 threshold of 4096 left Veach's 2308-triangle table on the
-    # column path, and the ~15 column gathers per walk pass were 1.24 s
-    # of the 2.6 s BDPT wall), while the packed-row gather fetches all
-    # 20 fields in ~3.2 ms total (tools/prof_shadegather.py, measured on
-    # chip at 960k lanes).
+    # tables of up to 64 rows take per-column gathers, larger ones ONE
+    # packed-row gather from tri_shade. The threshold was tuned for an
+    # earlier accelerator's gather lowering and is not measured on the
+    # H100 (ROADMAP D3).
     if scene.n_tris:
         ti = jnp.where(is_tri, safe_idx, 0)
         w = 1.0 - core.bu - core.bv

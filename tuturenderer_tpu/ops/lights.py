@@ -96,10 +96,8 @@ def sample_light(scene: SceneData, r_pick, r0, r1,
 
     # the emission gather is the ONE light-table lookup that carries
     # gradients (put_params refreshes light_emission from the material
-    # table): the default gather transpose is a scatter-add whose TPU
-    # lowering serializes per row (~11.5 ns/row — it cost the Cornell
-    # backward 3.6x, round 5), so it rides the same custom-VJP
-    # onehot-matmul gather as the material table
+    # table), so it rides the same custom-VJP onehot-matmul gather as the
+    # material table (materials._mat_gather; not measured on the H100)
     from ..materials import _mat_gather
     ex, ey, ez = _mat_gather((scene.light_emission.x,
                               scene.light_emission.y,

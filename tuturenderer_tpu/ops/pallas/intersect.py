@@ -1,17 +1,25 @@
-"""Pallas TPU kernel for dense ray/triangle intersection.
+"""Dense ray/triangle intersection kernels for the GPU (Pallas, Triton route).
 
-Why: the XLA version materializes [N, T] tiles whose minor dimension
-(T=32 for Cornell) occupies only a quarter of the 128-lane registers —
-measured 22 M rays/s per traversal at 1M rays. This kernel keeps ALL
-arithmetic on ray-shaped (ROWS, 128) tiles and walks triangles as scalars
-(broadcast from the packed triangle table), so every VPU lane does useful
-work and the whole Moller-Trumbore chain for a triangle lives in
-registers. Same acceptance rules as ops/intersect.py (strict t/u/v
-positivity, |dir.n_hat| >= 1e-4, det != 0).
+The XLA form (ops/intersect.py ``_tri_chunk_best``) builds ``[N, C]``
+t/u/v tiles, takes an argmin and gathers the winner's t, u and v. Here
+each program owns a 1-D block of ``BLOCK`` rays and keeps every ray's
+running best in registers while it walks the triangle table; nothing but
+the result leaves the chip's registers: 16 bytes per ray for the nearest
+hit (t, idx, u, v), 4 for the any-hit.
 
-Triangle table layout (packed [T, 12]): v0(3), e1(3), e2(3), n_hat(3).
-The table sits in VMEM and is shared by every grid program; the triangle
-loop is Python-unrolled for small T and a fori_loop for larger scenes.
+Triangle table (``pack_triangles``): flat ``[T_pad * 12]`` float32 rows
+v0(3) e1(3) e2(3) n_hat(3), ``T_pad`` a multiple of ``TRI_TILE`` (a power
+of two). Padding rows are all zero, so their det is 0 and the acceptance
+test rejects them. The kernels loop over tiles of ``TRI_TILE`` triangles;
+within a tile the triangles are unrolled, each one a broadcast scalar
+load. The any-hit kernel's loop stops once every ray of its block is
+blocked or has nothing left to test.
+
+One triangle test (Moller-Trumbore), with the acceptance rules of
+ops/intersect.py: |dir . n_hat| >= 1e-4, det != 0, t > 0, u > 0, v > 0,
+1 - u - v > 0; any-hit also needs t < dist and |t - dist| >= 1e-4.
+All arithmetic is float32 and elementwise (no matrix product, so no
+TF32 rounding can enter).
 """
 from __future__ import annotations
 
@@ -20,376 +28,161 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 F32_MAX = 3.4e38  # python float: jnp constants get captured as kernel consts
 PARALLEL_EPS = 1e-4
-LANES = 128
-ROWS = 128               # 128 x 128 = 16384 rays per grid program (VMEM stack limit)
-UNROLL_MAX = 64          # python-unroll the triangle loop up to this T
-STRANDS = 2              # independent best-hit accumulators (ILP)
+ROW = 12          # floats per packed triangle
+# launch shape, from an H100 sweep of tiles of 4-16 triangles, blocks of
+# 128-1024 rays and 1-8 warps at 1M rays: most settings came within a few
+# per cent of each other; 1 warp per 512+ rays was several times slower
+TRI_TILE = 4      # triangles per unrolled inner tile (power of two)
+BLOCK = 256       # rays per program (power of two)
+NUM_WARPS = 2
 
 
-def _tri_scalars(tri_ref, i):
-    # flat [T*12] layout: SMEM pads 2-D rows to 512B, so a (T,12) table
-    # would cost 512B/triangle and overflow the 1MB SMEM budget for
-    # larger scenes; the flat vector stays at 48B/triangle
-    base = i * 12
-    return [tri_ref[base + j] for j in range(12)]
+def _tri_test(tri_ref, i, o, d):
+    """Moller-Trumbore of triangle ``i`` against the block's rays ->
+    (ok, t, u, v) with the reference's acceptance rules (sans dist)."""
+    base = i * ROW
+    (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z,
+     nux, nuy, nuz) = [tri_ref[base + j] for j in range(ROW)]
+    ox, oy, oz = o
+    dx, dy, dz = d
+    sx = ox - v0x
+    sy = oy - v0y
+    sz = oz - v0z
+    # s1 = d x e2 ; s2 = s x e1  (Triangle.hpp:25-47 semantics)
+    s1x = dy * e2z - dz * e2y
+    s1y = dz * e2x - dx * e2z
+    s1z = dx * e2y - dy * e2x
+    s2x = sy * e1z - sz * e1y
+    s2y = sz * e1x - sx * e1z
+    s2z = sx * e1y - sy * e1x
+    det = s1x * e1x + s1y * e1y + s1z * e1z
+    dn = dx * nux + dy * nuy + dz * nuz
+    inv = 1.0 / jnp.where(det == 0.0, 1.0, det)
+    t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv
+    u = (s1x * sx + s1y * sy + s1z * sz) * inv
+    v = (s2x * dx + s2y * dy + s2z * dz) * inv
+    ok = (jnp.abs(dn) >= PARALLEL_EPS) & (det != 0.0) & (t > 0.0) & \
+        (u > 0.0) & (v > 0.0) & (1.0 - u - v > 0.0)
+    return ok, t, u, v
 
 
-def _kernel(tri_ref, ox, oy, oz, dx, dy, dz, t_out, idx_out, bu_out, bv_out,
-            *, n_tris: int):
-    shape = ox.shape
-    t_best = jnp.full(shape, F32_MAX)
-    idx_best = jnp.full(shape, -1, jnp.int32)
-    bu_best = jnp.zeros(shape)
-    bv_best = jnp.zeros(shape)
+def _nearest_kernel(tri_ref, ox, oy, oz, dx, dy, dz,
+                    t_out, idx_out, u_out, v_out, *, n_tiles: int):
+    o = (ox[...], oy[...], oz[...])
+    d = (dx[...], dy[...], dz[...])
+    shape = o[0].shape
 
-    rox = ox[...]
-    roy = oy[...]
-    roz = oz[...]
-    rdx = dx[...]
-    rdy = dy[...]
-    rdz = dz[...]
+    def tile(k, carry):
+        for j in range(TRI_TILE):
+            t_best, i_best, u_best, v_best = carry
+            i = k * TRI_TILE + j
+            ok, t, u, v = _tri_test(tri_ref, i, o, d)
+            ok = ok & (t < t_best)
+            carry = (jnp.where(ok, t, t_best), jnp.where(ok, i, i_best),
+                     jnp.where(ok, u, u_best), jnp.where(ok, v, v_best))
+        return carry
 
-    def test_one(i, carry):
-        t_best, idx_best, bu_best, bv_best = carry
-        (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z,
-         nux, nuy, nuz) = _tri_scalars(tri_ref, i)
-        sx = rox - v0x
-        sy = roy - v0y
-        sz = roz - v0z
-        # s1 = d x e2 ; s2 = s x e1  (Triangle.hpp:25-47 semantics)
-        s1x = rdy * e2z - rdz * e2y
-        s1y = rdz * e2x - rdx * e2z
-        s1z = rdx * e2y - rdy * e2x
-        s2x = sy * e1z - sz * e1y
-        s2y = sz * e1x - sx * e1z
-        s2z = sx * e1y - sy * e1x
-        det = s1x * e1x + s1y * e1y + s1z * e1z
-        dn = rdx * nux + rdy * nuy + rdz * nuz
-        # plain reciprocal: det==0 yields inf/NaN which the acceptance
-        # comparisons reject, matching the guarded-div semantics
-        inv = 1.0 / det
-        t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv
-        u = (s1x * sx + s1y * sy + s1z * sz) * inv
-        v = (s2x * rdx + s2y * rdy + s2z * rdz) * inv
-        ok = (jnp.abs(dn) >= PARALLEL_EPS) & (det != 0.0) & \
-            (t > 0.0) & (u > 0.0) & (v > 0.0) & (1.0 - u - v > 0.0) & \
-            (t < t_best)
-        t_best = jnp.where(ok, t, t_best)
-        idx_best = jnp.where(ok, i, idx_best)
-        bu_best = jnp.where(ok, u, bu_best)
-        bv_best = jnp.where(ok, v, bv_best)
-        return t_best, idx_best, bu_best, bv_best
-
-    carry = (t_best, idx_best, bu_best, bv_best)
-    if n_tris <= UNROLL_MAX:
-        for i in range(n_tris):
-            carry = test_one(i, carry)
-    else:
-        carry = jax.lax.fori_loop(0, n_tris, test_one, carry)
-    t_best, idx_best, bu_best, bv_best = carry
+    init = (jnp.full(shape, F32_MAX, jnp.float32),
+            jnp.full(shape, -1, jnp.int32),
+            jnp.zeros(shape, jnp.float32), jnp.zeros(shape, jnp.float32))
+    t_best, i_best, u_best, v_best = jax.lax.fori_loop(0, n_tiles, tile, init)
     t_out[...] = t_best
-    idx_out[...] = idx_best
-    bu_out[...] = bu_best
-    bv_out[...] = bv_best
+    idx_out[...] = i_best
+    u_out[...] = u_best
+    v_out[...] = v_best
 
 
-# kernel form: "woop" (prefactored affine rows, fewer VPU ops) or "mt"
-# (direct Moller-Trumbore). Same acceptance sets up to float rounding.
-PALLAS_IMPL = "woop"
+def _anyhit_kernel(tri_ref, ox, oy, oz, dx, dy, dz, dist, hit_out,
+                   *, n_tiles: int):
+    """Shadow rays: any triangle with t < dist and the FLOAT_EQUAL
+    endpoint guard (hasIntersection, BVH.hpp:170-194)."""
+    o = (ox[...], oy[...], oz[...])
+    d = (dx[...], dy[...], dz[...])
+    r = dist[...]
+    # a ray with dist <= 0 (dead lane) can never be blocked: t > 0 > dist
+    idle = jnp.where(r > 0.0, 0, 1)
 
+    def cond(carry):
+        k, blocked = carry
+        return (k < n_tiles) & (jnp.min(blocked | idle) == 0)
 
-@functools.partial(jax.jit, static_argnames=("n_tris", "impl", "interpret"))
-def _run(tri_packed, ox, oy, oz, dx, dy, dz, n_tris: int, impl: str = "mt",
-         interpret: bool = False):
-    n = ox.shape[0]
-    rows_total = n // LANES
-    grid = rows_total // ROWS
+    def tile(carry):
+        k, blocked = carry
+        for j in range(TRI_TILE):
+            ok, t, _, _ = _tri_test(tri_ref, k * TRI_TILE + j, o, d)
+            ok = ok & (t < r) & (jnp.abs(t - r) >= PARALLEL_EPS)
+            blocked = blocked | jnp.where(ok, 1, 0)
+        return k + 1, blocked
 
-    def ray_spec():
-        return pl.BlockSpec((ROWS, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    tri_spec = pl.BlockSpec(tri_packed.shape, lambda i: (0,),
-                            memory_space=pltpu.SMEM)
-    rs = lambda a: a.reshape(rows_total, LANES)
-    out_shape = [
-        jax.ShapeDtypeStruct((rows_total, LANES), jnp.float32),
-        jax.ShapeDtypeStruct((rows_total, LANES), jnp.int32),
-        jax.ShapeDtypeStruct((rows_total, LANES), jnp.float32),
-        jax.ShapeDtypeStruct((rows_total, LANES), jnp.float32),
-    ]
-    kernel = functools.partial(_NEAREST_KERNELS[impl], n_tris=n_tris)
-    t, idx, bu, bv = pl.pallas_call(
-        kernel,
-        grid=(grid,),
-        in_specs=[tri_spec] + [ray_spec() for _ in range(6)],
-        out_specs=[ray_spec() for _ in range(4)],
-        out_shape=out_shape,
-        interpret=interpret,
-    )(tri_packed, rs(ox), rs(oy), rs(oz), rs(dx), rs(dy), rs(dz))
-    flat = lambda a: a.reshape(-1)
-    return flat(t), flat(idx), flat(bu), flat(bv)
-
-
-def _woop_scalars(tri_ref, i):
-    # flat [T*13] layout: r1(3) c1 r2(3) c2 r3(3) c3 nlen — rows of the
-    # inverse [e1 e2 n] basis, c_k = r_k . v0, |n| for the parallel test
-    base = i * 13
-    return [tri_ref[base + j] for j in range(13)]
-
-
-def _woop_test(tri_ref, i, rox, roy, roz, rdx, rdy, rdz):
-    """Shared Woop-basis ray/triangle test: ~35 VPU ops vs ~55 for the
-    Moller-Trumbore form (the 3x3 solve is prefactored on host into
-    affine rows). Returns (t, u, v, dn) in triangle-local coordinates;
-    acceptance = same strict rules as Triangle.hpp:39-49."""
-    (r1x, r1y, r1z, c1, r2x, r2y, r2z, c2,
-     r3x, r3y, r3z, c3, nlen) = _woop_scalars(tri_ref, i)
-    w_o = rox * r3x + roy * r3y + roz * r3z - c3
-    w_d = rdx * r3x + rdy * r3y + rdz * r3z
-    inv = 1.0 / w_d          # w_d==0 -> inf/NaN, rejected by comparisons
-    t = -w_o * inv
-    u = (rox * r1x + roy * r1y + roz * r1z - c1) + \
-        t * (rdx * r1x + rdy * r1y + rdz * r1z)
-    v = (rox * r2x + roy * r2y + roz * r2z - c2) + \
-        t * (rdx * r2x + rdy * r2y + rdz * r2z)
-    dn = w_d * nlen          # dir . n_hat = (r3 . d) |n|
-    return t, u, v, dn
-
-
-def _kernel_woop(tri_ref, ox, oy, oz, dx, dy, dz, t_out, idx_out, bu_out,
-                 bv_out, *, n_tris: int):
-    shape = ox.shape
-
-    rox = ox[...]
-    roy = oy[...]
-    roz = oz[...]
-    rdx = dx[...]
-    rdy = dy[...]
-    rdz = dz[...]
-
-    def fresh_carry():
-        return (jnp.full(shape, F32_MAX), jnp.full(shape, -1, jnp.int32),
-                jnp.zeros(shape), jnp.zeros(shape))
-
-    def test_one(i, carry):
-        t_best, idx_best, bu_best, bv_best = carry
-        t, u, v, dn = _woop_test(tri_ref, i, rox, roy, roz, rdx, rdy, rdz)
-        ok = (jnp.abs(dn) >= PARALLEL_EPS) & \
-            (t > 0.0) & (u > 0.0) & (v > 0.0) & (1.0 - u - v > 0.0) & \
-            (t < t_best)
-        t_best = jnp.where(ok, t, t_best)
-        idx_best = jnp.where(ok, i, idx_best)
-        bu_best = jnp.where(ok, u, bu_best)
-        bv_best = jnp.where(ok, v, bv_best)
-        return t_best, idx_best, bu_best, bv_best
-
-    def merge(a, b):
-        ta, ia, ua, va = a
-        tb, ib, ub, vb = b
-        bw = tb < ta
-        return (jnp.where(bw, tb, ta), jnp.where(bw, ib, ia),
-                jnp.where(bw, ub, ua), jnp.where(bw, vb, va))
-
-    if n_tris <= UNROLL_MAX:
-        # STRANDS independent best-hit accumulators: the t_best select
-        # chain is the only loop-carried dependency, so interleaving
-        # strands hides its latency; merged pairwise at the end
-        strands = [fresh_carry() for _ in range(min(STRANDS, n_tris))]
-        for i in range(n_tris):
-            s = i % len(strands)
-            strands[s] = test_one(i, strands[s])
-        carry = strands[0]
-        for s in strands[1:]:
-            carry = merge(carry, s)
-    else:
-        carry = jax.lax.fori_loop(0, n_tris, test_one, fresh_carry())
-    t_best, idx_best, bu_best, bv_best = carry
-    t_out[...] = t_best
-    idx_out[...] = idx_best
-    bu_out[...] = bu_best
-    bv_out[...] = bv_best
-
-
-def _kernel_woop_anyhit(tri_ref, ox, oy, oz, dx, dy, dz, dist, hit_out,
-                        *, n_tris: int):
-    shape = ox.shape
-    blocked = jnp.zeros(shape, jnp.int32)
-
-    rox = ox[...]
-    roy = oy[...]
-    roz = oz[...]
-    rdx = dx[...]
-    rdy = dy[...]
-    rdz = dz[...]
-    rdist = dist[...]
-
-    def test_one(i, blocked):
-        t, u, v, dn = _woop_test(tri_ref, i, rox, roy, roz, rdx, rdy, rdz)
-        ok = (jnp.abs(dn) >= PARALLEL_EPS) & \
-            (t > 0.0) & (u > 0.0) & (v > 0.0) & (1.0 - u - v > 0.0) & \
-            (t < rdist) & (jnp.abs(t - rdist) >= PARALLEL_EPS)
-        return blocked | ok.astype(jnp.int32)
-
-    if n_tris <= UNROLL_MAX:
-        for i in range(n_tris):
-            blocked = test_one(i, blocked)
-    else:
-        blocked = jax.lax.fori_loop(0, n_tris, test_one, blocked)
+    _, blocked = jax.lax.while_loop(
+        cond, tile, (jnp.int32(0), jnp.zeros(r.shape, jnp.int32)))
     hit_out[...] = blocked
 
 
-def _kernel_anyhit(tri_ref, ox, oy, oz, dx, dy, dz, dist, hit_out,
-                   *, n_tris: int):
-    """Occlusion (shadow-ray) kernel: ANY triangle hit with t < dist and
-    the FLOAT_EQUAL endpoint guard (hasIntersection, BVH.hpp:170-194).
-    One boolean output, no nearest-hit bookkeeping — ~25% cheaper per
-    triangle than the nearest-hit kernel."""
-    shape = ox.shape
-    blocked = jnp.zeros(shape, jnp.int32)
-
-    rox = ox[...]
-    roy = oy[...]
-    roz = oz[...]
-    rdx = dx[...]
-    rdy = dy[...]
-    rdz = dz[...]
-    rdist = dist[...]
-
-    def test_one(i, blocked):
-        (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z,
-         nux, nuy, nuz) = _tri_scalars(tri_ref, i)
-        sx = rox - v0x
-        sy = roy - v0y
-        sz = roz - v0z
-        s1x = rdy * e2z - rdz * e2y
-        s1y = rdz * e2x - rdx * e2z
-        s1z = rdx * e2y - rdy * e2x
-        s2x = sy * e1z - sz * e1y
-        s2y = sz * e1x - sx * e1z
-        s2z = sx * e1y - sy * e1x
-        det = s1x * e1x + s1y * e1y + s1z * e1z
-        dn = rdx * nux + rdy * nuy + rdz * nuz
-        inv = 1.0 / det
-        t = (s2x * e2x + s2y * e2y + s2z * e2z) * inv
-        u = (s1x * sx + s1y * sy + s1z * sz) * inv
-        v = (s2x * rdx + s2y * rdy + s2z * rdz) * inv
-        ok = (jnp.abs(dn) >= PARALLEL_EPS) & (det != 0.0) & \
-            (t > 0.0) & (u > 0.0) & (v > 0.0) & (1.0 - u - v > 0.0) & \
-            (t < rdist) & (jnp.abs(t - rdist) >= PARALLEL_EPS)
-        return blocked | ok.astype(jnp.int32)
-
-    if n_tris <= UNROLL_MAX:
-        for i in range(n_tris):
-            blocked = test_one(i, blocked)
-    else:
-        blocked = jax.lax.fori_loop(0, n_tris, test_one, blocked)
-    hit_out[...] = blocked
-
-
-_NEAREST_KERNELS = {"mt": _kernel, "woop": _kernel_woop}
-_ANYHIT_KERNELS = {"mt": _kernel_anyhit, "woop": _kernel_woop_anyhit}
-
-
-@functools.partial(jax.jit, static_argnames=("n_tris", "impl", "interpret"))
-def _run_anyhit(tri_packed, ox, oy, oz, dx, dy, dz, dist, n_tris: int,
-                impl: str = "mt", interpret: bool = False):
-    n = ox.shape[0]
-    rows_total = n // LANES
-    grid = rows_total // ROWS
-
-    def ray_spec():
-        return pl.BlockSpec((ROWS, LANES), lambda i: (i, 0),
-                            memory_space=pltpu.VMEM)
-
-    tri_spec = pl.BlockSpec(tri_packed.shape, lambda i: (0,),
-                            memory_space=pltpu.SMEM)
-    rs = lambda a: a.reshape(rows_total, LANES)
-    kernel = functools.partial(_ANYHIT_KERNELS[impl], n_tris=n_tris)
-    hit = pl.pallas_call(
-        kernel,
-        grid=(grid,),
-        in_specs=[tri_spec] + [ray_spec() for _ in range(7)],
-        out_specs=ray_spec(),
-        out_shape=jax.ShapeDtypeStruct((rows_total, LANES), jnp.int32),
+def _call(kernel, tri, rays, outs, interpret, block, num_warps):
+    n = rays[0].shape[0]
+    spec = pl.BlockSpec((block,), lambda i: (i,))
+    return pl.pallas_call(
+        functools.partial(kernel, n_tiles=tri.shape[0] // (ROW * TRI_TILE)),
+        out_shape=[jax.ShapeDtypeStruct((n,), dt) for dt in outs],
+        grid=(n // block,),
+        in_specs=[pl.BlockSpec(tri.shape, lambda i: (0,))] +
+                 [spec] * len(rays),
+        out_specs=[spec] * len(outs),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps),
         interpret=interpret,
-    )(tri_packed, rs(ox), rs(oy), rs(oz), rs(dx), rs(dy), rs(dz), rs(dist))
-    return hit.reshape(-1)
+        name=kernel.__name__.strip("_"),
+    )(tri, *rays)
 
 
-def pallas_tri_occluded(scene, orig, d, dist, interpret: bool = False):
-    """Any-hit within ``dist`` against the scene triangles -> bool [N]."""
-    n = orig.x.shape[0]
-    block = ROWS * LANES
-    n_pad = -(-n // block) * block
-    pad = n_pad - n
-
-    def p(a):
-        return jnp.pad(a, (0, pad)) if pad else a
-
-    impl = PALLAS_IMPL
-    hit = _run_anyhit(_pack(scene, impl), p(orig.x), p(orig.y), p(orig.z),
-                      p(d.x), p(d.y), p(d.z), p(dist), scene.n_tris,
-                      impl=impl, interpret=interpret)
-    if pad:
-        hit = hit[:n]
-    return hit.astype(bool)
-
-
-def pack_triangles_woop(scene):
-    """Flat [T*13] Woop table (r1 c1 r2 c2 r3 c3 nlen per triangle) from
-    the scene's prefactored inverse-basis arrays (built in float64 on
-    host, SceneBuilder._woop_arrays)."""
-    t = scene.woop_nlen.shape[0]
-    # woop_w[k, 3i+j] = rows[i, j, k] -> [T, 3, 3] in (i, j, k)
-    rows = scene.woop_w.reshape(3, t, 3).transpose(1, 2, 0)
-    c = scene.woop_c.reshape(t, 3)
-    packed = jnp.concatenate([rows, c[:, :, None]], axis=2).reshape(t, 12)
-    return jnp.concatenate([packed, scene.woop_nlen[:, None]],
-                           axis=1).reshape(-1)
-
-
-def _pack(scene, impl):
-    return pack_triangles_woop(scene) if impl == "woop" \
-        else pack_triangles(scene)
-
-
-def pack_triangles(scene):
-    """[T, 12] packed triangle table from the SoA scene arrays."""
+def pack_triangles(scene) -> jnp.ndarray:
+    """Flat triangle table, rows padded with zeros to a multiple of
+    TRI_TILE."""
     e1 = scene.tv1 - scene.tv0
     e2 = scene.tv2 - scene.tv0
     n = e1.cross(e2)
     nu = n * (1.0 / jnp.maximum(n.norm(), 1e-30))
-    return jnp.stack([
+    rows = jnp.stack([
         scene.tv0.x, scene.tv0.y, scene.tv0.z,
         e1.x, e1.y, e1.z,
         e2.x, e2.y, e2.z,
         nu.x, nu.y, nu.z,
-    ], axis=1).reshape(-1)
+    ], axis=1)
+    pad = -scene.n_tris % TRI_TILE
+    return jnp.pad(rows, ((0, pad), (0, 0))).reshape(-1)
 
 
-def pallas_tri_intersect(scene, orig, d, interpret: bool = False):
-    """Nearest triangle hit via the Pallas kernel.
+def _padded_rays(arrays, block):
+    pad = -arrays[0].shape[0] % block
+    return [jnp.pad(a, (0, pad)) if pad else a for a in arrays]
 
-    Returns (t, idx, bu, bv) flat [N] arrays (t = F32_MAX, idx = -1 on
-    miss). Rays are padded to a multiple of the program block internally.
-    """
+
+def tri_nearest(scene, orig, d, *, interpret: bool = False,
+                block: int = BLOCK, num_warps: int = NUM_WARPS):
+    """Nearest triangle hit -> (t, idx, u, v), flat [N]; t = F32_MAX and
+    idx = -1 on a miss. Rays are padded to a multiple of ``block``."""
     n = orig.x.shape[0]
-    block = ROWS * LANES
-    n_pad = -(-n // block) * block
-    pad = n_pad - n
+    orig, d = jax.lax.stop_gradient((orig, d))   # no JVP through a kernel
+    rays = _padded_rays([orig.x, orig.y, orig.z, d.x, d.y, d.z], block)
+    t, idx, u, v = _call(_nearest_kernel, pack_triangles(scene), rays,
+                         (jnp.float32, jnp.int32, jnp.float32, jnp.float32),
+                         interpret, block, num_warps)
+    return t[:n], idx[:n], u[:n], v[:n]
 
-    def p(a):
-        return jnp.pad(a, (0, pad)) if pad else a
 
-    impl = PALLAS_IMPL
-    t, idx, bu, bv = _run(_pack(scene, impl), p(orig.x), p(orig.y), p(orig.z),
-                          p(d.x), p(d.y), p(d.z), scene.n_tris,
-                          impl=impl, interpret=interpret)
-    if pad:
-        t, idx, bu, bv = t[:n], idx[:n], bu[:n], bv[:n]
-    return t, idx, bu, bv
+def tri_occluded(scene, orig, d, dist, *, interpret: bool = False,
+                 block: int = BLOCK, num_warps: int = NUM_WARPS):
+    """Any triangle hit within ``dist`` -> bool [N]."""
+    n = orig.x.shape[0]
+    orig, d, dist = jax.lax.stop_gradient((orig, d, dist))
+    rays = _padded_rays([orig.x, orig.y, orig.z, d.x, d.y, d.z,
+                         jnp.broadcast_to(dist, (n,)).astype(jnp.float32)],
+                        block)
+    (hit,) = _call(_anyhit_kernel, pack_triangles(scene), rays,
+                   (jnp.int32,), interpret, block, num_warps)
+    return hit[:n] > 0

@@ -60,10 +60,9 @@ class RenderOptions:
     tutu_bdpt_t1_gate: bool = True
     # batching: rays processed per device dispatch (0 = whole frame)
     rays_per_pass: int = 0
-    # samples batched into ONE wavefront launch (path tracer): larger
-    # wavefronts give the large-scene cluster intersector tighter
-    # Morton-sorted ray tiles (its beam culling feeds on phase-space
-    # density). Purely a scheduling choice — the image is bit-identical.
+    # samples batched into ONE wavefront launch (path tracer): wider
+    # launches amortise per-launch overhead. Purely a scheduling choice —
+    # the image is bit-identical.
     # 1 = one launch per sample (default; right for small scenes).
     samples_per_launch: int = 1
     # wavefront compaction: per-bounce live-lane fraction schedule (static).

@@ -1,12 +1,11 @@
 """Multi-host distribution: process bootstrap + host-aware meshes.
 
 The reference has no multi-process backend at all (SURVEY.md section 2:
-threads + mutexes only). The TPU-native equivalent: ``jax.distributed``
-bootstraps one process per host; the device mesh gets an extra leading
-``host`` axis that maps to the DCN boundary, while ``tile``/``sample``
-stay within a slice (ICI). Film and gradient reductions are expressed
-once as ``psum`` over named axes — XLA routes them over ICI within the
-slice and DCN across slices.
+threads + mutexes only). Here ``jax.distributed`` bootstraps one process
+per host; the device mesh gets an extra leading ``host`` axis that spans
+processes, while ``tile``/``sample`` span the devices of one host. Film
+and gradient reductions are expressed once as ``psum`` over named axes,
+and XLA routes each over the links it crosses.
 
 Usage (same code single-host and multi-host):
 
@@ -33,9 +32,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
     """Initialize ``jax.distributed`` across hosts.
 
     Arguments fall back to the standard env vars
-    (``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``)
-    and to TPU-pod metadata when launched by the TPU runtime (in which
-    case ``jax.distributed.initialize()`` auto-detects everything).
+    (``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``).
     No-op when single-process or already initialized.
     """
     global _initialized
@@ -52,9 +49,6 @@ def init_distributed(coordinator_address: Optional[str] = None,
             jax.distributed.initialize(coordinator_address, num_processes,
                                        process_id)
             _initialized = True
-        elif num_processes == 0 and "TPU_WORKER_HOSTNAMES" in os.environ:
-            jax.distributed.initialize()   # TPU pod auto-detection
-            _initialized = True
     except RuntimeError:
         # already initialized by the launcher
         _initialized = True
@@ -62,14 +56,14 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 def make_multihost_mesh(sample: Optional[int] = None,
                         force_hosts: Optional[int] = None) -> Mesh:
-    """("host", "tile", "sample") mesh: ``host`` spans processes (DCN),
-    ``tile``/``sample`` span the chips within each host (ICI).
+    """("host", "tile", "sample") mesh: ``host`` spans processes,
+    ``tile``/``sample`` span the devices within each host.
 
     Single-process fallback: host axis of size 1 over all local devices,
     so code written against this mesh runs unchanged on one host.
 
     ``force_hosts``: partition the local devices into this many fake host
-    rows (single-process testing of the DCN-shaped axis — the sharding
+    rows (single-process testing of the host axis — the sharding
     programs and collectives compile/run exactly as they would across
     real hosts; only the physical transport differs).
     """

@@ -2,12 +2,12 @@
 mesh, with replicated scene and all-reduced film/gradients.
 
 The reference's only parallel layer is std::thread row slicing on one CPU
-(PathTracing.hpp:393-430, N_THREAD=20). The TPU design shards the
+(PathTracing.hpp:393-430, N_THREAD=20). This design shards the
 embarrassing axes over a 2D ``jax.sharding.Mesh``:
 
 - axis ``tile``: the flat pixel/lane axis (the analogue of row bands);
 - axis ``sample``: spp groups (each device traces spp/n_sample samples of
-  its pixel slice and the partial films are ``psum``-reduced over ICI).
+  its pixel slice and the partial films are ``psum``-reduced).
 
 Scene/BVH/material/texture buffers are replicated per chip (they are
 small); the wavefront state lives entirely in the shard. Counter-based
@@ -161,9 +161,15 @@ def train_step_sharded(params: MaterialParams, target, scene: SceneData,
             return jnp.sum((film - tgt_shard) ** 2)
 
         loss, grads = jax.value_and_grad(loss_fn)(prm)
-        # gradient all-reduce: ICI within a slice, DCN across hosts
-        grads = jax.lax.psum(grads, px_axes + ("sample",))
-        loss = jax.lax.psum(loss, px_axes) / (n_sample * p)
+        # gradient all-reduce over every mesh axis. Every sample row holds
+        # the same tile loss, and (check_vma=False) the transpose of the
+        # film's psum over "sample" hands each row the cotangent of all
+        # n_sample copies, so the sum over rows counts the true gradient
+        # n_sample times
+        grads = jax.tree.map(
+            lambda g: g / n_sample,
+            jax.lax.psum(grads, px_axes + ("sample",)))
+        loss = jax.lax.psum(loss, px_axes) / p
         new_params = jax.tree.map(lambda w, g: w - lr * g, prm, grads)
         return new_params, loss
 

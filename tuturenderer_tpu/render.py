@@ -33,8 +33,7 @@ def render_image(scene: SceneData, cam: Camera, opts: RenderOptions,
     else:
         raise ValueError(f"unknown integrator {integrator!r}")
     if integrator == "path" and opts.compaction:
-        # overflow observability (works on TPU, where the in-graph debug
-        # print cannot): surface the unbiased-roulette drop count
+        # overflow observability: surface the unbiased-roulette drop count
         img, st = jax.block_until_ready(
             run(scene, cam, opts, seed, stats=True))
         over = int(st["compaction_overflow"])

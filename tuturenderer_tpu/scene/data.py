@@ -1,10 +1,10 @@
 """Scene-as-arrays: the device-side scene representation.
 
 The reference scene is a ``vector<unique_ptr<Object>>`` with virtual
-dispatch (Scene.hpp:11-40, Object.hpp:15-44). On TPU the scene instead
+dispatch (Scene.hpp:11-40, Object.hpp:15-44). Here the scene instead
 becomes flat structure-of-arrays buffers — triangles ``[T]``, spheres
 ``[S]``, a material table ``[M]`` indexed per primitive, texture atlases,
-and a light table — replicated per chip and consumed by vectorized
+and a light table — replicated per device and consumed by vectorized
 kernels. One masked blend over material types replaces virtual
 ``BxDF/sampleDirection/pdf`` calls (Material.hpp:62-439).
 """
@@ -104,15 +104,12 @@ class SceneData:
     tarea: jnp.ndarray       # [T] f32
     # packed per-triangle shading row [T, 20]: n0(3) n1(3) n2(3) ng(3)
     # uv0(2) uv1(2) uv2(2) mat(1,f32) area(1). ONE row gather replaces
-    # ~25 scalar-column gathers in shade_hit — XLA lowers large-table
-    # gathers to a per-index loop, so gather COUNT (not width) is what
-    # costs; measured 25 x 3.7 ms -> 1 x 24 ms at 262k lanes / 100k tris
+    # ~25 scalar-column gathers in shade_hit
     tri_shade: jnp.ndarray
     # packed per-triangle tangent frame [T, 6]: tangent(3) bitangent(3)
     # from the reference's UV-delta TBN (IIntegrator.hpp:45-56),
     # precomputed on host so normal mapping is ONE row gather instead of
-    # ~17 per-column gathers of triangle constants (the XLA gather cliff,
-    # docs/PERF_R5.md)
+    # ~17 per-column gathers of triangle constants
     tri_tbn: jnp.ndarray
     # spheres [S]
     scenter: Vec3
@@ -145,17 +142,9 @@ class SceneData:
     # globals
     bkgcolor: Vec3           # scalar Vec3
     eta: jnp.ndarray         # scene index of refraction (scalar)
-    # acceleration structures (None = dense streaming intersection).
-    # bvh: flattened stack-traversal BVH (XLA while_loop path, CPU/fallback)
-    # clusters: streaming cluster-culling tables (Pallas TPU path)
+    # acceleration structure: flattened stack-traversal BVH for large
+    # meshes (ops/bvh.py); None = dense streaming intersection
     bvh: object
-    clusters: object
-    # MXU-friendly triangle transform (Woop-style): rows of the inverse
-    # [e1 e2 n] basis per triangle, laid out for [N,3] x [3,3T] matmuls.
-    # woop_w [3, 3T]; woop_c [3T] (row . v0 offsets); woop_nlen [T] (|n|)
-    woop_w: jnp.ndarray
-    woop_c: jnp.ndarray
-    woop_nlen: jnp.ndarray
     # static metadata
     has_textures: bool = dataclasses.field(metadata=dict(static=True))
     # material types present (static): kernels instantiate only these
@@ -415,41 +404,9 @@ class SceneBuilder:
                           jnp.float32(self.bkgcolor[2])),
             eta=jnp.float32(self.eta),
             bvh=self._maybe_bvh(verts, use_bvh),
-            clusters=self._maybe_clusters(verts, use_bvh),
-            **self._woop_arrays(verts),
             has_textures=any(len(v) > 0 for v in self.textures.values()),
             mtype_set=tuple(sorted(set(int(t) for t in m['mtype']))),
         )
-
-    def _woop_arrays(self, verts: np.ndarray):
-        """Per-triangle inverse-basis rows for the matmul intersection
-        path. For triangle (v0, e1, e2) with n = e1 x e2, the inverse of
-        the column basis [e1 e2 n] has rows r1, r2, r3 = n/|n|^2; a point
-        p maps to barycentric (u, v, w) = rows . (p - v0)."""
-        t = verts.shape[0]
-        if t == 0:
-            return dict(woop_w=jnp.zeros((3, 0), jnp.float32),
-                        woop_c=jnp.zeros((0,), jnp.float32),
-                        woop_nlen=jnp.zeros((0,), jnp.float32))
-        v0 = verts[:, 0].astype(np.float64)
-        e1 = verts[:, 1].astype(np.float64) - v0
-        e2 = verts[:, 2].astype(np.float64) - v0
-        n = np.cross(e1, e2)
-        basis = np.stack([e1, e2, n], axis=2)        # [T,3,3] columns
-        det = np.linalg.det(basis)
-        ok = np.abs(det) > 1e-30
-        safe = basis.copy()
-        safe[~ok] = np.eye(3)
-        rows = np.linalg.inv(safe)                   # [T,3,3] rows r1,r2,r3
-        rows[~ok] = 0.0
-        c = np.einsum('tij,tj->ti', rows, v0)        # [T,3]: c[i,j] = row_j.v0
-        # layout: w[k, 3*i + j] = rows[i, j, k] so that
-        # (O @ w)[n, 3*i + j] = o_n . row_j of triangle i
-        w = rows.transpose(2, 0, 1).reshape(3, 3 * t)
-        return dict(
-            woop_w=jnp.asarray(w.astype(np.float32)),
-            woop_c=jnp.asarray(c.reshape(-1).astype(np.float32)),
-            woop_nlen=jnp.asarray(np.linalg.norm(n, axis=1).astype(np.float32)))
 
     def _maybe_bvh(self, verts: np.ndarray, use_bvh):
         from ..ops.bvh import BVH_THRESHOLD, build_bvh
@@ -458,15 +415,3 @@ class SceneBuilder:
         if not use_bvh or verts.shape[0] == 0:
             return None
         return build_bvh(verts)
-
-    def _maybe_clusters(self, verts: np.ndarray, use_bvh):
-        from ..ops.bvh import BVH_THRESHOLD
-        from ..ops.pallas.cluster import build_clusters
-        if use_bvh is None:
-            use_bvh = verts.shape[0] >= BVH_THRESHOLD
-        if not use_bvh or verts.shape[0] == 0:
-            return None
-        tmat = np.concatenate(self._tri_mat, 0) if self._tris else \
-            np.zeros((0,), np.int32)
-        alphas = np.asarray(self._mat['alpha'], np.float32)[tmat]
-        return build_clusters(verts, alphas=alphas)

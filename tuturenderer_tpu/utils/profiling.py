@@ -3,7 +3,7 @@
 The reference's only instrumentation is wall-clock ``std::chrono`` spans
 around BVH build and render plus a console progress bar (BVH.hpp:32-37,
 global.hpp:202-213, main.cpp:90-102); its ``records`` debug-string
-machinery is dead code (IIntegrator.hpp:15, SURVEY.md quirk 12). The TPU
+machinery is dead code (IIntegrator.hpp:15, SURVEY.md quirk 12). The
 equivalents here:
 
 - ``phase(name)``: device-synchronized wall-clock span (the chrono
@@ -79,7 +79,7 @@ def _sync():
 @contextlib.contextmanager
 def trace(logdir: str):
     """jax.profiler trace (view with XProf / TensorBoard profile plugin).
-    Captures compiled-kernel timelines on real TPU hardware."""
+    Captures compiled-kernel timelines on the device."""
     with jax.profiler.trace(logdir):
         yield
 

@@ -1,9 +1,8 @@
-"""TPU-friendly 3-vector math over structure-of-arrays.
+"""3-vector math over structure-of-arrays.
 
 The reference renderer (TutuRenderer, include/Vector.hpp) uses an AoS
-``Vector3f`` class. On TPU an ``[N, 3]`` array wastes ~42x of every
-(8, 128) register tile because the minor dimension pads 3 -> 128, so the
-whole framework instead carries each component as its own ``[N]`` array.
+``Vector3f`` class. Here each component is its own ``[N]`` array, so
+every wavefront operation reads and writes contiguous, fully used rows.
 ``Vec3`` is a NamedTuple of three arrays with full elementwise algebra;
 XLA fuses the component ops exactly as it would a hand-written kernel.
 
