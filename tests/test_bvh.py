@@ -108,3 +108,29 @@ def test_bvh_occluded_matches_nearest_hit_occlusion():
             & (np.abs(np.asarray(core.t) - np.asarray(dist)) >= PARALLEL_EPS)
         got = np.asarray(bvh_occluded(s, s.bvh, o, d, dist))
         assert (got == want).mean() > 0.995, scale
+
+
+def test_bvh_gradient_through_compacted_wavefront():
+    """jax.grad of render_diff on a BVH scene whose wavefront is compacted
+    (rays come out of the compaction gather carrying tangents) runs, and
+    equals the gradient on the same scene intersected densely."""
+    import jax
+
+    from tuturenderer_tpu.grad import get_params, render_diff
+    from tuturenderer_tpu.options import RenderOptions
+    from tuturenderer_tpu.scene.presets import simple_box
+
+    # 32 x 32 x 2 = 2048 lanes; the 0.5 fraction shrinks them to 1024
+    opts = RenderOptions(spp=2, samples_per_launch=2, max_depth=2,
+                         compaction=(1.0, 0.5))
+    grads = []
+    for use_bvh in (True, False):
+        scene, cam = simple_box(32, 32, use_bvh=use_bvh)
+        assert (scene.bvh is not None) == use_bvh
+        grads.append(jax.grad(lambda p: jnp.mean(
+            render_diff(p, scene, cam, opts, 1)))(get_params(scene)))
+    for a, b in zip(*(jax.tree.leaves(g) for g in grads)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=1e-4, atol=1e-6)
+    assert any(np.abs(np.asarray(a)).max() > 0
+               for a in jax.tree.leaves(grads[0]))

@@ -1,8 +1,6 @@
-"""The GPU intersection kernels (ops/pallas/intersect.py) against the XLA
+"""The GPU intersection kernel (ops/pallas/intersect.py) against the XLA
 dense reference path: interpret-mode parity on the CPU, the wrapper's
 padding, the kernel choice by platform, and the gradient rule."""
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,7 +50,31 @@ def test_pallas_nearest_matches_xla():
     assert_nearest_matches(K.tri_nearest(s, o, d, interpret=True), ref)
 
 
-def test_pallas_anyhit_matches_xla_occlusion():
+def _spy_kernels(monkeypatch):
+    """Route the kernel to interpret mode and record its calls."""
+    calls = []
+    nearest = K.tri_nearest
+
+    def spy(*a, **kw):
+        calls.append("tri_nearest")
+        return nearest(*a, interpret=True, **kw)
+
+    monkeypatch.setattr(K, "tri_nearest", spy)
+    return calls
+
+
+def _kernel_occluded(monkeypatch, s, o, d, dist):
+    """occluded() down the GPU branch, the kernel in interpret mode."""
+    calls = _spy_kernels(monkeypatch)
+    monkeypatch.setattr(I, "_use_kernel", lambda: True)
+    got = np.asarray(I.occluded(s, o, d, dist))
+    assert calls == ["tri_nearest"]
+    return got
+
+
+def test_pallas_anyhit_matches_xla_occlusion(monkeypatch):
+    """Shadow rays through the kernel's nearest hit and the endpoint rule
+    give the XLA path's decisions."""
     s, o, d = random_scene_and_rays(seed=7)
     ref = I.intersect_core(s, o, d)
     for scale in (0.5, 1.0, 2.0):
@@ -60,11 +82,12 @@ def test_pallas_anyhit_matches_xla_occlusion():
         dist = jnp.asarray(t_ref * scale + 0.3)
         want = np.asarray(ref.hit) & (np.asarray(ref.t) < np.asarray(dist)) & \
             (np.abs(np.asarray(ref.t) - np.asarray(dist)) >= I.PARALLEL_EPS)
-        got = np.asarray(K.tri_occluded(s, o, d, dist, interpret=True))
+        got = _kernel_occluded(monkeypatch, s, o, d, dist)
+        monkeypatch.undo()
         assert (got == want).mean() > 0.99
 
 
-def test_pallas_anyhit_endpoint_guard():
+def test_pallas_anyhit_endpoint_guard(monkeypatch):
     """dist exactly at the hit distance -> not occluded (BVH.hpp:184)."""
     b = SceneBuilder()
     m = b.add_material()
@@ -76,7 +99,7 @@ def test_pallas_anyhit_endpoint_guard():
     d = Vec3(jnp.zeros((4,)), jnp.zeros((4,)), jnp.ones((4,)))
     # within-eps endpoint (1.0, 1.0+5e-5) -> unoccluded; beyond eps -> occluded
     dist = jnp.asarray([2.0, 1.0, 0.5, 1.0 + 5e-5])
-    got = np.asarray(K.tri_occluded(s, o, d, dist, interpret=True))
+    got = _kernel_occluded(monkeypatch, s, o, d, dist)
     assert got.tolist() == [True, False, False, False]
 
 
@@ -89,38 +112,21 @@ def test_pallas_pads_rays_and_table(n_tris, n_rays):
     table = K.pack_triangles(s)
     assert table.shape == (-(-n_tris // K.TRI_TILE) * K.TRI_TILE * K.ROW,)
     np.testing.assert_array_equal(np.asarray(table)[n_tris * K.ROW:], 0.0)
-    got = K.tri_nearest(s, o, d, interpret=True, block=128)
+    assert n_rays % K.BLOCK
+    got = K.tri_nearest(s, o, d, interpret=True)
     assert all(a.shape == (n_rays,) for a in got)
     assert_nearest_matches(got, I.intersect_core(s, o, d))
-    dist = jnp.full((n_rays,), 4.0)
-    blocked = K.tri_occluded(s, o, d, dist, interpret=True, block=128)
-    assert blocked.shape == (n_rays,) and blocked.dtype == jnp.bool_
-
-
-def _spy_kernels(monkeypatch):
-    """Route the kernels to interpret mode and record their calls."""
-    calls = []
-
-    def spy(fn):
-        @functools.wraps(fn)
-        def wrapped(*a, **kw):
-            calls.append(fn.__name__)
-            return fn(*a, interpret=True, **kw)
-        return wrapped
-
-    monkeypatch.setattr(K, "tri_nearest", spy(K.tri_nearest))
-    monkeypatch.setattr(K, "tri_occluded", spy(K.tri_occluded))
-    return calls
 
 
 @pytest.mark.parametrize("backend,use_bvh,want", [
-    ("gpu", False, ["tri_nearest", "tri_occluded"]),
+    ("gpu", False, ["tri_nearest", "tri_nearest"]),
     ("cpu", False, []),
     ("gpu", True, []),
 ])
 def test_kernel_choice_by_platform(monkeypatch, backend, use_bvh, want):
-    """Dense triangle scenes take the kernels exactly when the default
-    backend is the GPU; BVH scenes never do."""
+    """Dense triangle scenes take the kernel, for nearest hits and shadow
+    rays, exactly when the default backend is the GPU; BVH scenes never
+    do."""
     s, o, d = random_scene_and_rays(n_tris=16, n_rays=64, seed=1)
     if use_bvh:
         b = SceneBuilder()
@@ -138,7 +144,7 @@ def test_kernel_choice_by_platform(monkeypatch, backend, use_bvh, want):
 
 
 def test_gradient_through_kernel_path_matches_xla(monkeypatch):
-    """jax.grad of render_diff through the kernels (tangents stripped at
+    """jax.grad of render_diff through the kernel (tangents stripped at
     the kernel boundary) equals the XLA path's gradient."""
     from tuturenderer_tpu.grad import get_params, render_diff
     from tuturenderer_tpu.options import RenderOptions
@@ -156,7 +162,7 @@ def test_gradient_through_kernel_path_matches_xla(monkeypatch):
     calls = _spy_kernels(monkeypatch)
     monkeypatch.setattr(I, "_use_kernel", lambda: True)
     got = grad()
-    assert "tri_nearest" in calls and "tri_occluded" in calls
+    assert "tri_nearest" in calls
     for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-4, atol=1e-6)
@@ -165,13 +171,15 @@ def test_gradient_through_kernel_path_matches_xla(monkeypatch):
 
 @pytest.mark.gpu
 def test_kernels_compiled_for_the_card_match_xla(gpu):
-    """The kernels as compiled for the card (no interpret mode) against
-    the XLA reference on the same card."""
+    """The kernel as compiled for the card (no interpret mode) against
+    the XLA reference on the same card, for nearest hits and, through
+    occluded(), for shadow rays."""
     s, o, d = random_scene_and_rays(n_tris=300, n_rays=4096, seed=2)
     ref = I.xla_nearest(s, o, d)
     assert_nearest_matches(K.tri_nearest(s, o, d), ref)
     dist = jnp.where(ref.hit, ref.t, 1.0) * 1.5 + 0.2
     want = np.asarray(ref.hit) & (np.asarray(ref.t) < np.asarray(dist))
-    got = np.asarray(K.tri_occluded(s, o, d, dist))
+    assert I._use_kernel()
+    got = np.asarray(I.occluded(s, o, d, dist))
     assert (got == want).mean() > 0.99
 

@@ -194,7 +194,12 @@ def _leaf_intersect(scene: SceneData, bvh: FlatBVH, node,
 
 
 def bvh_intersect(scene: SceneData, bvh: FlatBVH, o: Vec3, d: Vec3) -> HitCore:
-    """Nearest-hit traversal, vectorized over rays with per-ray stacks."""
+    """Nearest-hit traversal, vectorized over rays with per-ray stacks.
+
+    Tangents stop here, as at the dense kernel's boundary: reverse mode
+    cannot pass a ``while_loop``, and rays that come out of a compaction
+    gather carry (zero-valued) tangents from the lanes' weights."""
+    o, d = jax.lax.stop_gradient((o, d))
     n = o.x.shape[0]
     inv = lambda c: 1.0 / jnp.where(c == 0.0, 1e-30, c)
     ix, iy, iz = inv(d.x), inv(d.y), inv(d.z)
@@ -254,7 +259,8 @@ def bvh_occluded(scene: SceneData, bvh: FlatBVH, o: Vec3, d: Vec3,
     traversing the moment any primitive blocks it (stack cleared) —
     the early-out the nearest-hit fallback could not give the occlusion
     path. Accept rule: t < dist with the FLOAT_EQUAL endpoint guard
-    (BVH.hpp:184)."""
+    (BVH.hpp:184). Tangents stop here, as in bvh_intersect."""
+    o, d, dist = jax.lax.stop_gradient((o, d, dist))
     n = o.x.shape[0]
     inv = lambda c: 1.0 / jnp.where(c == 0.0, 1e-30, c)
     ix, iy, iz = inv(d.x), inv(d.y), inv(d.z)

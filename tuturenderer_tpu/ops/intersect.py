@@ -34,7 +34,7 @@ CHUNK = 512
 
 
 def _use_kernel() -> bool:
-    """Dense triangle scenes take the Triton kernels (ops/pallas/intersect.py)
+    """Dense triangle scenes take the Triton kernel (ops/pallas/intersect.py)
     on the GPU and the XLA chunk loop below everywhere else."""
     return jax.default_backend() == "gpu"
 
@@ -234,26 +234,22 @@ def occluded(scene: SceneData, orig: Vec3, d: Vec3, dist,
     """Any-hit within ``dist`` (shadow ray). Mirrors hasIntersection
     (BVH.hpp:170-194) incl. the FLOAT_EQUAL guard at the endpoint.
 
-    BVH scenes take the early-out any-hit traversal and dense scenes on
-    the GPU the any-hit kernel; the dense XLA form reuses the nearest-hit
-    search. (Equivalent results: if the nearest hit fails the endpoint
-    guard, no farther hit can pass it, since passing requires
-    t <= dist - eps.)
+    BVH scenes take the early-out any-hit traversal; dense scenes reuse
+    the nearest-hit search (the GPU kernel or the XLA chunk loop). The
+    results are equivalent: if the nearest hit fails the endpoint guard,
+    no farther hit can pass it, since passing requires t <= dist - eps.
 
     ``mask`` as in intersect_core: dead lanes become degenerate rays with
     dist 0 and always report unblocked."""
     if mask is not None:
         orig, d = _mask_rays(orig, d, mask)
         dist = jnp.where(mask, dist, 0.0)
-    if scene.bvh is not None:
-        from .bvh import bvh_occluded
-        blocked = bvh_occluded(scene, scene.bvh, orig, d, dist)
-    elif scene.n_tris and _use_kernel():
-        blocked = tri_kernel.tri_occluded(scene, orig, d, dist)
-    else:
+    if scene.bvh is None:
         core = intersect_core(scene, orig, d)
         return core.hit & (core.t < dist) & \
             (jnp.abs(core.t - dist) >= PARALLEL_EPS)
+    from .bvh import bvh_occluded
+    blocked = bvh_occluded(scene, scene.bvh, orig, d, dist)
     if scene.n_spheres:
         blocked = blocked | _sphere_occluded(scene, orig, d, dist)
     return blocked

@@ -1,25 +1,24 @@
-"""Dense ray/triangle intersection kernels for the GPU (Pallas, Triton route).
+"""Dense ray/triangle intersection kernel for the GPU (Pallas, Triton route).
 
 The XLA form (ops/intersect.py ``_tri_chunk_best``) builds ``[N, C]``
 t/u/v tiles, takes an argmin and gathers the winner's t, u and v. Here
 each program owns a 1-D block of ``BLOCK`` rays and keeps every ray's
 running best in registers while it walks the triangle table; nothing but
-the result leaves the chip's registers: 16 bytes per ray for the nearest
-hit (t, idx, u, v), 4 for the any-hit.
+the result leaves the chip's registers: 16 bytes per ray (t, idx, u, v).
+Shadow rays reuse it with the endpoint rule (ops/intersect.py
+``occluded``).
 
 Triangle table (``pack_triangles``): flat ``[T_pad * 12]`` float32 rows
 v0(3) e1(3) e2(3) n_hat(3), ``T_pad`` a multiple of ``TRI_TILE`` (a power
 of two). Padding rows are all zero, so their det is 0 and the acceptance
-test rejects them. The kernels loop over tiles of ``TRI_TILE`` triangles;
+test rejects them. The kernel loops over tiles of ``TRI_TILE`` triangles;
 within a tile the triangles are unrolled, each one a broadcast scalar
-load. The any-hit kernel's loop stops once every ray of its block is
-blocked or has nothing left to test.
+load.
 
 One triangle test (Moller-Trumbore), with the acceptance rules of
 ops/intersect.py: |dir . n_hat| >= 1e-4, det != 0, t > 0, u > 0, v > 0,
-1 - u - v > 0; any-hit also needs t < dist and |t - dist| >= 1e-4.
-All arithmetic is float32 and elementwise (no matrix product, so no
-TF32 rounding can enter).
+1 - u - v > 0. All arithmetic is float32 and elementwise (no matrix
+product, so no TF32 rounding can enter).
 """
 from __future__ import annotations
 
@@ -43,7 +42,7 @@ NUM_WARPS = 2
 
 def _tri_test(tri_ref, i, o, d):
     """Moller-Trumbore of triangle ``i`` against the block's rays ->
-    (ok, t, u, v) with the reference's acceptance rules (sans dist)."""
+    (ok, t, u, v) with the reference's acceptance rules."""
     base = i * ROW
     (v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z,
      nux, nuy, nuz) = [tri_ref[base + j] for j in range(ROW)]
@@ -96,50 +95,6 @@ def _nearest_kernel(tri_ref, ox, oy, oz, dx, dy, dz,
     v_out[...] = v_best
 
 
-def _anyhit_kernel(tri_ref, ox, oy, oz, dx, dy, dz, dist, hit_out,
-                   *, n_tiles: int):
-    """Shadow rays: any triangle with t < dist and the FLOAT_EQUAL
-    endpoint guard (hasIntersection, BVH.hpp:170-194)."""
-    o = (ox[...], oy[...], oz[...])
-    d = (dx[...], dy[...], dz[...])
-    r = dist[...]
-    # a ray with dist <= 0 (dead lane) can never be blocked: t > 0 > dist
-    idle = jnp.where(r > 0.0, 0, 1)
-
-    def cond(carry):
-        k, blocked = carry
-        return (k < n_tiles) & (jnp.min(blocked | idle) == 0)
-
-    def tile(carry):
-        k, blocked = carry
-        for j in range(TRI_TILE):
-            ok, t, _, _ = _tri_test(tri_ref, k * TRI_TILE + j, o, d)
-            ok = ok & (t < r) & (jnp.abs(t - r) >= PARALLEL_EPS)
-            blocked = blocked | jnp.where(ok, 1, 0)
-        return k + 1, blocked
-
-    _, blocked = jax.lax.while_loop(
-        cond, tile, (jnp.int32(0), jnp.zeros(r.shape, jnp.int32)))
-    hit_out[...] = blocked
-
-
-def _call(kernel, tri, rays, outs, interpret, block, num_warps):
-    n = rays[0].shape[0]
-    spec = pl.BlockSpec((block,), lambda i: (i,))
-    return pl.pallas_call(
-        functools.partial(kernel, n_tiles=tri.shape[0] // (ROW * TRI_TILE)),
-        out_shape=[jax.ShapeDtypeStruct((n,), dt) for dt in outs],
-        grid=(n // block,),
-        in_specs=[pl.BlockSpec(tri.shape, lambda i: (0,))] +
-                 [spec] * len(rays),
-        out_specs=[spec] * len(outs),
-        backend="triton",
-        compiler_params=plgpu.CompilerParams(num_warps=num_warps),
-        interpret=interpret,
-        name=kernel.__name__.strip("_"),
-    )(tri, *rays)
-
-
 def pack_triangles(scene) -> jnp.ndarray:
     """Flat triangle table, rows padded with zeros to a multiple of
     TRI_TILE."""
@@ -157,32 +112,27 @@ def pack_triangles(scene) -> jnp.ndarray:
     return jnp.pad(rows, ((0, pad), (0, 0))).reshape(-1)
 
 
-def _padded_rays(arrays, block):
-    pad = -arrays[0].shape[0] % block
-    return [jnp.pad(a, (0, pad)) if pad else a for a in arrays]
-
-
-def tri_nearest(scene, orig, d, *, interpret: bool = False,
-                block: int = BLOCK, num_warps: int = NUM_WARPS):
+def tri_nearest(scene, orig, d, *, interpret: bool = False):
     """Nearest triangle hit -> (t, idx, u, v), flat [N]; t = F32_MAX and
-    idx = -1 on a miss. Rays are padded to a multiple of ``block``."""
+    idx = -1 on a miss. Rays are padded to a multiple of ``BLOCK``."""
     n = orig.x.shape[0]
     orig, d = jax.lax.stop_gradient((orig, d))   # no JVP through a kernel
-    rays = _padded_rays([orig.x, orig.y, orig.z, d.x, d.y, d.z], block)
-    t, idx, u, v = _call(_nearest_kernel, pack_triangles(scene), rays,
-                         (jnp.float32, jnp.int32, jnp.float32, jnp.float32),
-                         interpret, block, num_warps)
+    pad = -n % BLOCK
+    rays = [jnp.pad(a, (0, pad)) for a in
+            (orig.x, orig.y, orig.z, d.x, d.y, d.z)]
+    tri = pack_triangles(scene)
+    spec = pl.BlockSpec((BLOCK,), lambda i: (i,))
+    t, idx, u, v = pl.pallas_call(
+        functools.partial(_nearest_kernel,
+                          n_tiles=tri.shape[0] // (ROW * TRI_TILE)),
+        out_shape=[jax.ShapeDtypeStruct((n + pad,), dt) for dt in
+                   (jnp.float32, jnp.int32, jnp.float32, jnp.float32)],
+        grid=((n + pad) // BLOCK,),
+        in_specs=[pl.BlockSpec(tri.shape, lambda i: (0,))] + [spec] * 6,
+        out_specs=[spec] * 4,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
+        interpret=interpret,
+        name="tri_nearest",
+    )(tri, *rays)
     return t[:n], idx[:n], u[:n], v[:n]
-
-
-def tri_occluded(scene, orig, d, dist, *, interpret: bool = False,
-                 block: int = BLOCK, num_warps: int = NUM_WARPS):
-    """Any triangle hit within ``dist`` -> bool [N]."""
-    n = orig.x.shape[0]
-    orig, d, dist = jax.lax.stop_gradient((orig, d, dist))
-    rays = _padded_rays([orig.x, orig.y, orig.z, d.x, d.y, d.z,
-                         jnp.broadcast_to(dist, (n,)).astype(jnp.float32)],
-                        block)
-    (hit,) = _call(_anyhit_kernel, pack_triangles(scene), rays,
-                   (jnp.int32,), interpret, block, num_warps)
-    return hit[:n] > 0
