@@ -99,14 +99,19 @@ sphere 0 0.05 0 0.55
 """
 
 def tex_body(o):
+    # the framework's parser resolves texture names against the config's
+    # directory, so its variant names them relative to golden/ and works
+    # from any checkout; the reference binary opens them from its working
+    # directory, so its variant keeps this checkout's absolute paths
+    tex = "tex" if o else TEX
     return f"""MICROFACET_R 0.8 0.6 0.4 1.0 1.0 0.4 0.3
-texture {TEX}/checker.ppm
-roughnessTexture {TEX}/rough.ppm
-metallicTexture {TEX}/metal.ppm
+texture {tex}/checker.ppm
+roughnessTexture {tex}/rough.ppm
+metallicTexture {tex}/metal.ppm
 sphere 0 0.05 0 0.55
 mtlcolor 0.7 0.7 0.7 1 1 1 1.0 1.0
-texture {TEX}/checker.ppm
-bump {TEX}/bump.ppm
+texture {tex}/checker.ppm
+bump {tex}/bump.ppm
 v -2 -0.5 2
 v 2 -0.5 2
 v 2 -0.5 -2

@@ -122,3 +122,26 @@ f 1/1 2/2 3/3
     assert scene.has_textures
     assert scene.diffuse_maps.k == 1
     assert int(scene.materials.diffuse_map[int(scene.tmat[0])]) == 0
+
+
+def test_golden_texture_scene_loads_from_a_copy(tmp_path):
+    """golden/tex_128.txt names its maps relative to itself, so a checkout
+    at any path (or a copy of golden/) renders it: every map is read from
+    the copy (2x2 stand-ins here), none from the tree it was copied from."""
+    from tuturenderer_tpu.io.ppm import write_ppm
+    from tuturenderer_tpu.scene.config import parse_config
+    golden = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "golden")
+    copy = tmp_path / "golden"
+    (copy / "tex").mkdir(parents=True)
+    for name in ("checker", "bump", "rough", "metal"):
+        write_ppm(str(copy / "tex" / f"{name}.ppm"),
+                  np.full((2, 2, 3), 0.2, np.float32), gamma=1.0)
+    with open(os.path.join(golden, "tex_128.txt")) as f:
+        (copy / "tex_128.txt").write_text(f.read())
+    scene = parse_config(str(copy / "tex_128.txt")).builder.build()
+    assert scene.has_textures
+    for atlas in (scene.diffuse_maps, scene.normal_maps,
+                  scene.roughness_maps, scene.metallic_maps):
+        assert atlas.k == 1
+        assert (int(atlas.w[0]), int(atlas.h[0])) == (2, 2)
